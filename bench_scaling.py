@@ -12,7 +12,7 @@ scaling — results carry "virtual_mesh": true and must not be read against
 the 85% target. What the virtual run does validate: the sharded program
 compiles, collectives execute, and per-device-count outputs are
 bit-identical (tests/test_sharding.py). On real multi-chip/multi-host
-hardware the same harness reports true ICI/DCN scaling.
+hardware the same harness reports true interconnect scaling.
 """
 from __future__ import annotations
 

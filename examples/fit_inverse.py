@@ -9,7 +9,7 @@ Runs three fits on the device mesh (all visible devices):
   3. mesh vertices: the spot scene's SHARED vertex buffer
                 (scene.mesh_vertices, BASELINE.md "recover vertices"):
                 the ground plane is displaced 0.25 upward and pulled back
-                on the default (Pallas on TPU) backend — apply_params
+                on the default backend (the kernels on a GPU) — apply_params
                 refreshes the cluster AABBs every step so moved geometry
                 stays visible to the culling pass.
 
@@ -26,7 +26,7 @@ Laplacian gradient preconditioner for noisy per-vertex fits.
 
 Usage:
     python examples/fit_inverse.py [out_prefix]
-CPU (no TPU needed):
+CPU (no accelerator needed):
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/fit_inverse.py
 Writes <prefix>_{albedo,geo}_{target,start,fitted}.png and prints the loss
@@ -169,6 +169,9 @@ def fit_spot_vertices(prefix, mesh, cfg, W=48, H=48):
 
 
 def main():
+    from mafrixraytracing_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     prefix = sys.argv[1] if len(sys.argv) > 1 else "/tmp/fit"
     cfg = PathTracerConfig(max_depth=2, rr_enable=False)
     mesh = make_mesh()

@@ -22,6 +22,9 @@ from mafrixraytracing_tpu.scene import assets
 
 
 def main():
+    from mafrixraytracing_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     out = sys.argv[1] if len(sys.argv) > 1 and not sys.argv[1].startswith("--") \
         else "/tmp/spot_raster.png"
     size = "512x512"

@@ -1,4 +1,4 @@
-"""Render the Cornell-box flagship scene to PNG — the TPU-native analog of
+"""Render the Cornell-box flagship scene to PNG — the array-program analog of
 the reference's `DoRayTrace4` demo (`RenderTest/Sample/RayTracing4.fs:7-80`),
 with progressive accumulation and periodic dumps instead of an ImGui window.
 
@@ -27,6 +27,9 @@ from mafrixraytracing_tpu.scene.compiler import compile_scene
 
 
 def main():
+    from mafrixraytracing_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("out", nargs="?", default="cornell.png")
     ap.add_argument("--spp", type=int, default=64)

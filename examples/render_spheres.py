@@ -1,5 +1,5 @@
 """Render the three-sphere RTIOW-style hero shot (lambert / metal /
-dielectric) — the TPU-native analog of the reference's disabled
+dielectric) — the array-program analog of the reference's disabled
 `DoRayTrace` sample (`RenderTest/Sample/RayTracing.fs:417-474`), whose
 render loop was dead code after the OpenCVSharp removal. Ours runs.
 
@@ -28,6 +28,9 @@ from mafrixraytracing_tpu.scene.compiler import compile_scene
 
 
 def main():
+    from mafrixraytracing_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("out", nargs="?", default="spheres.png")
     ap.add_argument("--spp", type=int, default=64)

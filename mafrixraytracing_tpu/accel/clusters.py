@@ -7,10 +7,10 @@ axis (the same split rule as the reference's BVH build,
 one *cluster* with a tight AABB, and traversal = "test cluster AABB, only
 then test its triangles" — the branch-free, pointer-free analog of the
 reference's recursive descent (`Core/Accelerate/BvhNode.fs:62-83`; its leaf
-size 3 becomes the TPU lane width 128 and a masked loop). A balanced
+size 3 becomes a 128-triangle cluster tested as one dense tile). A balanced
 count-median split is used instead of Morton-code chunking because it
-produces near-disjoint clusters: far fewer clusters survive the per-ray-tile
-cull, which is the dominant cost of the Pallas intersector.
+produces near-disjoint clusters: far fewer clusters survive the per-block
+cull, and the kernel's cost is proportional to survivors.
 
 The device-side consumer is `ops.intersect_pallas` — the two-phase
 cull + Pallas kernel; `geometry.intersect` provides the dense jnp
@@ -20,8 +20,8 @@ from __future__ import annotations
 
 import numpy as np
 
-# 128 = TPU lane width: the Pallas kernel tests one cluster (sublanes)
-# against one ray tile (lanes) as a single (128, 128) vector op.
+# Triangles per cluster: the walk kernel tests one cluster (columns) against
+# one ray block (rows) as a single dense (BLOCK, 128) tile.
 CLUSTER_SIZE = 128
 
 # Two-level hierarchy: SUPER consecutive clusters form one supercluster
@@ -29,7 +29,7 @@ CLUSTER_SIZE = 128
 # so parent AABBs stay tight). Large scenes cull rays against the (B, S)
 # supercluster slabs instead of the (B, C) cluster slabs — a 16x smaller
 # dense pass — and the kernel refines each surviving supercluster against
-# its 16 child cluster AABBs in VMEM (`ops.intersect_pallas`).
+# its 16 child cluster AABBs (`ops.intersect_pallas`).
 SUPER = 16
 
 # "Mega" triangles (ground planes, room walls): any triangle whose AABB

@@ -10,13 +10,13 @@ Parity targets:
 - Thin-lens (reference sample `RayTraceCamera`,
   `RenderTest/Sample/RayTracing.fs:335-364`): aperture disk + focus distance.
 
-The whole camera is a flax pytree of f32 arrays, so camera parameters
+The whole camera is a pytree of f32 arrays, so camera parameters
 (position, orientation, fov) receive gradients in inverse rendering.
 """
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from mafrixraytracing_tpu.core import struct
 from jax import Array
 
 from mafrixraytracing_tpu.core.math import cross, normalize

@@ -1,9 +1,9 @@
 """Vector math core.
 
-TPU-native replacement for the reference's scalar `Point`/`Vector`/`Color`
+Batched replacement for the reference's scalar `Point`/`Vector`/`Color`
 types (reference `EngineCore/Core/Point.fs:5-68`, `Core/Color.fs:4-20`):
 everything here operates on batched `(..., 3)` float arrays so it vectorizes
-onto the VPU's 8x128 lanes instead of running one scalar op per component.
+across rays instead of running one scalar op per component.
 """
 from __future__ import annotations
 

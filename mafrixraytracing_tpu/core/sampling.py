@@ -4,7 +4,7 @@ Replaces the reference's sampler zoo (`Core/Interfaces/ISampler.fs:13-58`,
 `Core/Samples/JitteredSampler.fs`, hemisphere helpers in
 `Core/Materials/Brdfs/Lambertian.fs:10-53`, rejection sampling in
 `Core/Materials/Material.fs:9-14`) with branch-free analytic warps of uniform
-[0,1)^2 samples — TPU-friendly (no rejection loops) and differentiable.
+[0,1)^2 samples — branch-free (no rejection loops) and differentiable.
 Also fixes the reference's diagonal-jitter bug
 (`Core/Samples/JitteredSampler.fs:16` uses the same random value for both
 axes); our stratified jitter uses independent axes.

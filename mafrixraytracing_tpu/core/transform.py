@@ -11,6 +11,10 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 from jax import Array
+from jax.lax import Precision
+
+# float32 products at full precision: a GPU would otherwise run them in TF32
+HIGHEST = Precision.HIGHEST
 
 
 def identity() -> Array:
@@ -62,7 +66,7 @@ def compose(*mats: Array) -> Array:
     """Left-to-right application order: compose(A, B) applies A first."""
     out = jnp.eye(4, dtype=jnp.float32)
     for m in mats:
-        out = m @ out
+        out = jnp.matmul(m, out, precision=HIGHEST)
     return out
 
 
@@ -74,7 +78,7 @@ def apply_point(m: Array, p: Array) -> Array:
     """Transform points (..., 3) with w-divide
     (reference `Transformation.fs:48-57`)."""
     ph = jnp.concatenate([p, jnp.ones(p.shape[:-1] + (1,), p.dtype)], axis=-1)
-    out = jnp.einsum("ij,...j->...i", m, ph)
+    out = jnp.einsum("ij,...j->...i", m, ph, precision=HIGHEST)
     w = jnp.where(jnp.abs(out[..., 3:4]) > 1e-12, out[..., 3:4], 1.0)
     return out[..., :3] / w
 
@@ -82,7 +86,7 @@ def apply_point(m: Array, p: Array) -> Array:
 def apply_vector(m: Array, v: Array) -> Array:
     """Transform directions (..., 3); translation ignored
     (reference `Transformation.fs:59-63`)."""
-    return jnp.einsum("ij,...j->...i", m[:3, :3], v)
+    return jnp.einsum("ij,...j->...i", m[:3, :3], v, precision=HIGHEST)
 
 
 def apply_normal(m: Array, n: Array) -> Array:
@@ -90,4 +94,4 @@ def apply_normal(m: Array, n: Array) -> Array:
     under non-uniform scale (the reference lacks this; needed for correct
     instancing)."""
     inv_t = jnp.linalg.inv(m[:3, :3]).T
-    return jnp.einsum("ij,...j->...i", inv_t, n)
+    return jnp.einsum("ij,...j->...i", inv_t, n, precision=HIGHEST)

@@ -1,6 +1,6 @@
 """Batched pytree types for rays, hits, and path state.
 
-TPU-native replacement for the reference's per-ray objects: `Ray`
+Wavefront replacement for the reference's per-ray objects: `Ray`
 (`EngineCore/Core/Ray.fs:5-10`) and `HitRecord`
 (`EngineCore/Core/Interfaces/HitRecord.fs:5-15`) become structure-of-arrays
 pytrees over a ray-batch axis, so one `Rays` holds an entire wavefront.
@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from mafrixraytracing_tpu.core import struct
 from jax import Array
 
 

@@ -1,12 +1,11 @@
-"""Structure-of-arrays 3-vectors: the TPU-native vector representation.
+"""Structure-of-arrays 3-vectors: the wavefront vector representation.
 
-A `(B, 3)` array on TPU tiles as T(8, 128) with the minor dim padded
-3 -> 128 whenever XLA materializes it with the default {1,0} layout — a
-42x memory-traffic tax measured at ~3-4 ms per elementwise fusion at
-B=512k. Three flat `(B,)` components tile densely; the same shading chain
-runs 10-13x faster (see PROFILE.md). The hot integrator path therefore
-carries every vector as a `V3` of flat components; `(B, 3)` arrays appear
-only at API boundaries (scene tables, images, tests).
+The hot integrator path carries every vector as a `V3` of three flat `(B,)`
+components instead of one `(B, 3)` array: each component is a dense,
+contiguous array, so every elementwise fusion reads and writes whole
+columns with no strided minor dimension, and no stack/unstack pair sits
+between fusions for XLA to materialize. `(B, 3)` arrays appear only at API
+boundaries (scene tables, images, tests).
 
 This is the wavefront analog of the reference keeping scalar `Point`
 fields (`Core/Point.fs:5-68`) — components stay separate, batched over

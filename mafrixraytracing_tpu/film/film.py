@@ -10,7 +10,7 @@ bit-exactly (see `utils.checkpoint`).
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from mafrixraytracing_tpu.core import struct
 from jax import Array
 
 from mafrixraytracing_tpu.film import tonemap as tm

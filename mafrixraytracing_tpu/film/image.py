@@ -28,6 +28,18 @@ def write_png(path: str, rgb_u8: np.ndarray) -> None:
         f.write(_encode_png_zlib(arr))
 
 
+def pil_image():
+    """`PIL.Image`, or a clear error when Pillow is not installed (only
+    texture *loading* needs it; PNG writing has a zlib fallback)."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            "reading image files needs Pillow (the PIL package), which is "
+            "not installed") from e
+    return Image
+
+
 def encode_png(rgb_u8: np.ndarray) -> bytes:
     """Encode an (H, W, 3) uint8 array as PNG bytes (in-memory sink for the
     live preview, `film.preview`)."""
@@ -66,8 +78,7 @@ def read_image(path: str) -> np.ndarray:
     """Decode an image file to float32 (H, W, 3) in [0, 1] — texture loading
     (reference `TextureFromFile`, `Core/Texture.fs:30-44`; note the reference
     flips vertically there — we keep row 0 at the top and flip at *sampling*
-    time instead, since OBJ vt has v up)."""
-    from PIL import Image
-
+    time instead, since OBJ vt has v up). Needs Pillow."""
+    Image = pil_image()
     img = Image.open(path).convert("RGB")
     return np.asarray(img, dtype=np.float32) / 255.0

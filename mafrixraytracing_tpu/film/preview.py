@@ -4,7 +4,7 @@ refreshed with the accumulating film every frame
 (`/root/reference/EngineCore/Core/Film.fs:38-92`, render-loop callback
 `Scene/Scene.fs:331-333`).
 
-A TPU renderer has no place for a GL swapchain, so the equivalent here is:
+A headless accelerator renderer has no place for a GL swapchain, so the equivalent here is:
 
 - atomic PNG refresh: `LivePreview.update(film_bytes)` rewrites one PNG
   via rename, so any image viewer / file watcher polling it always sees a

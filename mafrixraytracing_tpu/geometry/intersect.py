@@ -1,6 +1,6 @@
 """Batched ray/primitive intersection (jnp reference path).
 
-TPU-native replacement for the reference's per-ray recursive hit tests:
+Batched replacement for the reference's per-ray recursive hit tests:
 - Moller-Trumbore triangles, double-sided via |det| (reference
   `Core/Shape/Trangle.fs:120-145` takes `abs divisor` the same way).
 - Stable-quadratic spheres (reference `Core/Shape/Sphere.fs:21-43`).
@@ -14,9 +14,9 @@ the hit triangle's recompute, which is the standard reparameterized
 closest-hit estimator (visibility discontinuities are not differentiated).
 
 The closest-hit search runs as a `lax.scan` over primitive chunks so peak
-memory is O(rays x chunk) regardless of scene size. The Pallas kernels in
-`mafrixraytracing_tpu.ops` override this path for the hot forward case and
-fall back to the same differentiable recompute for backward.
+memory is O(rays x chunk) regardless of scene size. The Pallas cluster-walk
+kernels in `mafrixraytracing_tpu.ops` replace this search on the GPU and
+share the same differentiable recompute for backward.
 """
 from __future__ import annotations
 
@@ -111,8 +111,7 @@ def _closest_tri(scene, o, d, t_min, t_max, chunk=1024):
             & (t < t_max[:, None])
         )
         t = jnp.where(valid, t, BIG)
-        # min + index-select reduces: TPU lowers take_along_axis(argmin) to a
-        # serial per-row gather (~20x slower than these two vector reduces)
+        # min + index-select reduces: the smallest index wins among equal t
         cand_t = jnp.min(t, axis=1)
         cand_i = jnp.min(
             jnp.where(t <= cand_t[:, None], ids[None], jnp.int32(2**31 - 1)),
@@ -303,8 +302,6 @@ def hit_attributes(scene, rays: Rays, prim_idx: Array, t_hint: Array) -> Hit:
 # Packed attribute fetch: ONE row gather instead of ~15 narrow ones
 # ---------------------------------------------------------------------------
 #
-# TPU gathers are serial per-row: 15 separate (T,3)[idx] gathers cost ~20 ms
-# at B=512k while a single (P,36)[idx] row gather costs ~1.5 ms (measured).
 # All per-primitive attributes — geometry AND the joined material row — are
 # therefore packed into one (T+Sp, 36) f32 matrix built on the fly inside
 # jit (T-sized ops, trivially cheap; gradients flow through the pack/unpack
@@ -460,12 +457,23 @@ def hit_attributes_packed(scene, rays: Rays, prim_idx: Array, t_hint: Array,
     return hit, sh
 
 
+def fetch_cols(table, idx):
+    """Gather rows `table[idx]` and return them as a tuple of flat (B,)
+    columns: one row gather, its column slices behind an
+    `optimization_barrier` (on an H100 the barrier form ran the
+    forward+backward of the fetch ~27% faster than free slices, the forward
+    alone equally fast — PERF.md). Differentiable w.r.t. `table` by plain
+    autodiff."""
+    rows = table[idx]
+    return lax.optimization_barrier(
+        tuple(rows[:, k] for k in range(table.shape[1])))
+
+
 def hit_attributes_soa(scene, o, d, prim_idx: Array, t_hint: Array,
                        times=None, packed=None):
     """SoA form of `hit_attributes_packed`: o, d are `V3` ray columns;
     returns (HitS, ShadingS) built from flat (B,) components only — no
-    (B, 3) arrays are ever materialized (their padded {1,0} layout costs
-    42x memory traffic on TPU; see core.v3)."""
+    (B, 3) arrays are ever materialized (see core.v3)."""
     from mafrixraytracing_tpu.core import v3
     from mafrixraytracing_tpu.core.types import HitS, ShadingS
     from mafrixraytracing_tpu.core.v3 import V3
@@ -478,17 +486,9 @@ def hit_attributes_soa(scene, o, d, prim_idx: Array, t_hint: Array,
     is_sph = valid & (prim_idx >= T)
     if packed is None:
         packed = packed_attr_table(scene)
-    # ONE row gather + ONE Pallas transpose-unpack pass: the gathered
-    # (B, 36) rows carry a lane-padded {1,0} layout (36 -> 128, ~7x bytes)
-    # and XLA otherwise splits the 36 column slices into ~9 fusions that
-    # each re-read the whole padded array (~200 ms/iter at B=512k in the
-    # round-3 profile). See ops.unpack_pallas (falls back to barrier
-    # slices off-TPU / on odd batch sizes).
-    from mafrixraytracing_tpu.ops.unpack_pallas import fetch_cols
-
     cols = fetch_cols(packed, jnp.clip(prim_idx, 0, P - 1))
     # checkpoint-named so a remat policy may SAVE the fetched columns and
-    # skip the gather+unpack in the rematted recompute (integrator.path
+    # skip the gather in the rematted recompute (integrator.path
     # opts in via PathTracerConfig.save_attrs; ~75 MB/bounce/spp-step)
     cols = tuple(checkpoint_name(c, f"attr{k}") for k, c in enumerate(cols))
     col = lambda k: cols[k]
@@ -569,9 +569,8 @@ def hit_attributes_soa(scene, o, d, prim_idx: Array, t_hint: Array,
     albedo = vec(24)
     if scene.has_textures:
         tex_id = col(33).astype(jnp.int32)
-        # saved per flat component: a checkpoint-named (B, 3) buffer would
-        # be stored with the padded {.,1,0} layout (42x HBM) across the
-        # remat scan
+        # saved per flat component, like every other saved residual (see
+        # core.v3)
         tex_rgb = V3.of(
             sample_atlas(scene.tex_atlas, tex_id,
                          jnp.stack([uu, vv], axis=-1), mode="nearest")

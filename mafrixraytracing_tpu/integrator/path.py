@@ -1,6 +1,6 @@
 """Wavefront path integrator with next-event estimation.
 
-TPU-native replacement for the recursive `PathIntegrator.TraceRay`
+Wavefront replacement for the recursive `PathIntegrator.TraceRay`
 (`Core/Integrator/Integrators.fs:96-141`) + `PixelIntegrator.Sample`
 (`Integrators.fs:143-172`): instead of per-ray recursion, a fixed-size
 wavefront of path states advances through a bounce loop; dead paths are
@@ -70,11 +70,11 @@ class PathTracerConfig:
     backend: str = "auto"       # "auto" | "jnp" | "pallas" — intersection backend
     wavefront: int = 1 << 19    # target rays in flight: render_image groups
                                 # several spp into one wavefront so per-op
-                                # dispatch overhead amortizes (the TPU analog
-                                # of the reference saturating CPU cores with
+                                # dispatch overhead amortizes (the analog of
+                                # the reference saturating CPU cores with
                                 # `Array.Parallel`, `Integrators.fs:164`)
     remat: bool = True          # checkpoint each spp sample with SAVE_ISECT:
-                                # backward-pass HBM is O(spp*depth) hit records
+                                # backward-pass memory is O(spp*depth) hit records
                                 # (not activations) and the traversal kernels
                                 # never re-run in the backward pass
     save_attrs: bool = True     # also save the 36 fetched attribute columns
@@ -87,13 +87,10 @@ class PathTracerConfig:
                                 # `RenderTest/Sample/RayTracing.fs:210-253`)
     sort_secondary: bool = False  # reorder the wavefront by (origin-morton,
                                 # direction octant) before each secondary
-                                # bounce — the TPU analog of GPU wavefront
-                                # ray sorting. Off by default: with the
-                                # tight cluster cull the multi-operand sorts
-                                # cost more than the coherence saves on both
-                                # spot (576 vs 703 ms fwd/16spp) and
-                                # Renault (779 vs 926 ms); enable for
-                                # scenes with much higher cluster counts
+                                # bounce (wavefront ray sorting). Off by
+                                # default: the compaction path already
+                                # re-tiles survivors by the same key;
+                                # not measured on the GPU
     compact: tuple = ()         # wavefront compaction schedule: fraction of
                                 # the initial wavefront kept at each bounce
                                 # (len == max_depth, first entry 1.0). After
@@ -109,8 +106,6 @@ class PathTracerConfig:
                                 # roulette — unbiased; buckets are chosen
                                 # with headroom so this is a rare safety
                                 # valve, not the mechanism). () = off.
-                                # ~45% of lane-bounces were dead work on the
-                                # spot bench (round-4 VERDICT item 1a).
 
 
 def _occluder(scene, config):
@@ -135,23 +130,22 @@ def _intersect(scene, rays, config, alive=None):
 
 # Rematerialization policy: save the intersection-search results (named in
 # `ops.dispatch`) and the wavefront sort order, and recompute everything
-# else in the backward pass. The search is ~80% of forward cost but
-# non-differentiable, so this makes the backward pass cost O(shading), not
-# O(traversal), while residual memory stays at ~9 bytes/ray/bounce instead
-# of full activations.
+# else in the backward pass. The search is non-differentiable, so this
+# makes the backward pass cost O(shading), not O(traversal), while residual
+# memory stays at ~9 bytes/ray/bounce instead of full activations.
 ISECT_SAVE_NAMES = ("isect_t", "isect_idx", "occluded",
                     "tex_r", "tex_g", "tex_b")
 ATTR_SAVE_NAMES = tuple(f"attr{k}" for k in range(36))
 # compaction pack-sort outputs: saving the (shrunken) sorted columns lets
 # the rematted recompute skip the multi-operand pack sorts entirely (they
-# are ~5 ms apiece at B=512k and re-ran once per bounce in the backward
-# recompute); ~70 B/kept-lane/bounce of residents, auto-gated by the same
-# HBM check as the attribute saves.
+# would otherwise re-run once per bounce in the backward recompute);
+# ~70 B/kept-lane/bounce of residents, auto-gated by the same memory check
+# as the attribute saves.
 PACK_SAVE_NAMES = (tuple(f"pack{k}" for k in range(18))
                    + tuple(f"packi{k}" for k in range(4))
                    + ("sortperm",))
 SAVE_ISECT = jax.checkpoint_policies.save_only_these_names(*ISECT_SAVE_NAMES)
-# + the 36 fetched attribute columns: skips the gather + Pallas unpack in
+# + the 36 fetched attribute columns: skips the attribute gather in
 # the rematted recompute at ~144 B/ray/bounce of extra residents — right
 # for moderate spp-scan lengths (the bench), wrong for very long ones
 # (Renault @ 256 spp); selected via PathTracerConfig.save_attrs.
@@ -201,12 +195,11 @@ def _coherence_key_soa(scene, o, d, alive) -> Array:
 
 @partial(jax.custom_vjp, nondiff_argnums=())
 def _permute_by_key(sort_key, float_cols, int_cols):
-    """Sort every column by `sort_key` via ONE multi-operand `lax.sort`.
-    TPU gathers are serial per-row (measured ~4.5 ms per (B,) gather at
-    B=512k) while the sort network is vectorized (~4 ms for ~19 columns
-    together), so sorting the *values* beats argsort + gather by ~10x.
-    The custom VJP unsorts cotangents with another multi-operand sort —
-    the default sort transpose would lower to a (42 ms) scatter."""
+    """Sort every column by `sort_key` via ONE multi-operand `lax.sort`
+    (the values travel with the key: no argsort + per-column gathers). The
+    custom VJP unsorts cotangents with another multi-operand sort instead
+    of the scatter the default sort transpose would lower to. Not measured
+    against argsort + gather on the GPU."""
     out, _ = _permute_fwd_impl(sort_key, float_cols, int_cols)
     return out
 
@@ -218,7 +211,7 @@ def _permute_fwd_impl(sort_key, float_cols, int_cols):
                  num_keys=1)
     # the VJP residual: checkpoint-named so the remat policy saves it and
     # the backward recompute never re-runs the sort just to rebuild the
-    # permutation (measured ~6.6 ms/iter of rematted sorts)
+    # permutation
     perm = checkpoint_name(s[1], "sortperm")
     nf = len(float_cols)
     out = (tuple(s[2:2 + nf]), tuple(s[2 + nf:]))
@@ -251,7 +244,7 @@ def _permute_bwd(perm, cts):
 _permute_by_key.defvjp(_permute_fwd, _permute_bwd)
 
 
-# --- wavefront compaction (round 5) -----------------------------------------
+# --- wavefront compaction ---------------------------------------------------
 # After each bounce, ~half the lanes are dead but still pay full NEE/BSDF/
 # RNG/backward cost (the intersector already skips them via t_max = 0, the
 # elementwise tail does not). The compaction path packs live lanes to the
@@ -271,15 +264,17 @@ _permute_by_key.defvjp(_permute_fwd, _permute_bwd)
 
 def compact_buckets(config: "PathTracerConfig", B: int):
     """Static per-bounce wavefront sizes from the fraction schedule.
-    Rounded up to 1024 (the intersector's TILE*GROUP alignment) so the
-    padded kernel batch equals the bucket; non-increasing."""
+    Rounded up to the intersector's ray block (`intersect_pallas.BLOCK`) so
+    the padded kernel batch equals the bucket; non-increasing."""
+    from mafrixraytracing_tpu.ops.intersect_pallas import BLOCK
+
     fr = config.compact
     assert len(fr) == config.max_depth, (fr, config.max_depth)
     assert abs(fr[0] - 1.0) < 1e-9, "first bucket must keep the full wavefront"
     ks, prev = [], B
     for f in fr:
-        if B >= 1024:
-            k = min(B, -(-int(round(f * B)) // 1024) * 1024)
+        if B >= BLOCK:
+            k = min(B, -(-int(round(f * B)) // BLOCK) * BLOCK)
         else:
             k = min(B, max(1, int(round(f * B))))
         k = min(k, prev)
@@ -384,15 +379,10 @@ def _compact_bounce_loop(scene, init, bounce_step, config):
 
 # --- flat wavefront carry ----------------------------------------------------
 # The bounce loop (scan or unrolled) carries the wavefront as FLAT (B,)
-# columns, never (B, 3) matrices: materialized loop-boundary buffers get
-# XLA's default {1,0} layout, which tiles (B, 3) as T(8,128) with the minor
-# dim padded 3 -> 128 — a 42x memory-traffic tax on every fusion touching
-# carry state (measured: ~3 ms for a single (B,3) dot-product fusion at
-# B=512k; round-5 traces showed the compaction loop's Rays/.arr()
-# boundaries re-materializing padded (B, 3)/(B, 1) buffers at every
-# bounce). `bounce_step` therefore consumes and produces the flat tuple
-# directly — V3 views are built in place, and no stack/unstack pair exists
-# for XLA to (fail to) cancel.
+# columns, never (B, 3) matrices (see core.v3): `bounce_step` consumes and
+# produces the flat tuple directly — V3 views are built in place, and no
+# stack/unstack pair exists at a loop boundary for XLA to (fail to)
+# cancel.
 #
 # Column layout:
 #   0:3  origin   3:6  direction   6:9  throughput   9:12 radiance
@@ -448,8 +438,7 @@ def _trace_physical(scene, rays, keys, config, times=None):
     """The bounce loop runs as a `lax.scan` so the jaxpr (and compile time,
     especially of the backward pass) is O(1) in max_depth — the wavefront
     form of the reference's recursion. All math is SoA ((B,) component
-    columns, core.v3): materialized (B, 3) arrays pay a 42x layout-padding
-    tax on TPU."""
+    columns, core.v3)."""
     from mafrixraytracing_tpu.core import v3
     from mafrixraytracing_tpu.core.v3 import V3
     from mafrixraytracing_tpu.lights.lights import (
@@ -592,14 +581,12 @@ def _trace_physical(scene, rays, keys, config, times=None):
         # primary bounce in pixel-tile order, then a wavefront re-sort
         # before *every* later bounce: bounce rays are incoherent in pixel
         # order and coherence decays again after each scatter, while the
-        # Pallas intersector culls per 128-ray tile. Each path carries its
+        # intersector culls per ray block. Each path carries its
         # pixel id so radiance can be unsorted at the end; the estimator is
         # exactly permutation-invariant (each lane is an independent path).
         #
         # The permutation is applied with ONE multi-operand `lax.sort`
-        # (key + every wavefront column): XLA's sort network is fully
-        # vectorized, whereas argsort + per-array gathers cost ~4.5 ms per
-        # (B,) gather on TPU (serial per-row addressing) — measured 10x.
+        # (key + every wavefront column, see `_permute_by_key`).
         pid = jnp.arange(B, dtype=jnp.int32)
         carry, _ = bounce_step(init, jnp.int32(0))
 
@@ -615,7 +602,7 @@ def _trace_physical(scene, rays, keys, config, times=None):
         (carry, pid), _ = lax.scan(
             sorted_step, (carry, pid), jnp.arange(1, config.max_depth)
         )
-        # unsort by pixel id — also a sort, not a scatter (42 ms vs 1.5 ms)
+        # unsort by pixel id — also a sort, not a scatter
         f, _ = _permute_by_key(pid, carry[9:12], ())
         return jnp.stack(f, axis=1)
     carry, _ = lax.scan(bounce_step, init, jnp.arange(config.max_depth))
@@ -711,7 +698,7 @@ def trace_stats(scene, rays: Rays, keys: Array, config: PathTracerConfig,
     # area light exists, one per LIVE point light, one per LIVE
     # emissive-sphere light — counted via the masks, not the padded table
     # shapes (point lights bucket to 8 rows, spheres to 4; counting padding
-    # would inflate the bench numerator up to 8x — round-4 ADVICE item 3)
+    # would inflate the bench numerator up to 8x)
     n_shadow = (
         jnp.any(scene.light_mask).astype(jnp.float32)
         + jnp.sum(scene.plight_mask.astype(jnp.float32))
@@ -779,22 +766,16 @@ def make_pixel_uv(width: int, height: int):
 
 
 def _default_tile_shape():
-    """Near-square pixel block covering TILE pixels (computed from TILE, not
-    a fixed table, so any valid MFX_TILE override gets a sane block)."""
-    from mafrixraytracing_tpu.ops.intersect_pallas import TILE
-
-    h = 1
-    while h * 2 * h * 2 <= TILE:
-        h *= 2
-    return max(1, TILE // h), h
+    """Near-square pixel block covering one intersector ray block."""
+    return _spp_tile_shape(1)
 
 
 def tiled_pixel_order(width: int, height: int, tile_w: int = 0, tile_h: int = 0):
     """Permutation putting pixels in (tile-row, tile-col, in-tile) order so
     each consecutive run of tile_w*tile_h rays is a compact screen block.
-    The Pallas intersector processes rays in tiles of `TILE` sublanes; an
-    8x4 pixel block has a far tighter frustum than a TILE-pixel scanline
-    run, so cluster culling removes much more work. Returns
+    The intersector walks rays in blocks of `intersect_pallas.BLOCK`; a
+    compact pixel block has a far tighter frustum than a scanline run of
+    the same length, so cluster culling removes much more work. Returns
     (perm, inv_perm) as numpy arrays (host; width/height are static)."""
     import numpy as np
 
@@ -817,15 +798,15 @@ def tiled_pixel_order(width: int, height: int, tile_w: int = 0, tile_h: int = 0)
 
 def _spp_group(spp: int, B: int, target: int) -> int:
     """Largest divisor of `spp` keeping the wavefront B*G near `target`,
-    preferring divisors that also divide the intersector TILE so a pixel's
-    G samples never straddle ray tiles (which would silently loosen the
-    per-tile cull frustum)."""
-    from mafrixraytracing_tpu.ops.intersect_pallas import TILE
+    preferring divisors that also divide the intersector block so a
+    pixel's G samples never straddle ray blocks (which would silently
+    loosen the per-block cull frustum)."""
+    from mafrixraytracing_tpu.ops.intersect_pallas import BLOCK
 
     cap = max(1, min(spp, target // max(B, 1)))
     best = 1
     for g in range(1, cap + 1):
-        if spp % g == 0 and TILE % g == 0:
+        if spp % g == 0 and BLOCK % g == 0:
             best = g
     if best > 1:
         return best
@@ -836,11 +817,11 @@ def _spp_group(spp: int, B: int, target: int) -> int:
 
 
 def _spp_tile_shape(G: int):
-    """Pixel-block shape for the intersector ray tile when each pixel
-    carries G consecutive samples: TILE/G pixels, laid out near-square."""
-    from mafrixraytracing_tpu.ops.intersect_pallas import TILE
+    """Pixel-block shape for the intersector ray block when each pixel
+    carries G consecutive samples: BLOCK/G pixels, laid out near-square."""
+    from mafrixraytracing_tpu.ops.intersect_pallas import BLOCK
 
-    px = max(1, TILE // max(G, 1))
+    px = max(1, BLOCK // max(G, 1))
     h = 1
     while h * 2 * h * 2 <= px:
         h *= 2
@@ -871,10 +852,10 @@ def render_image(
     # BASELINE Renault config needs this); each scan step renders one
     # (pixel-chunk, spp-group) pair.
     n_chunks = max(1, -(-B // config.wavefront)) if G == 1 else 1
-    from mafrixraytracing_tpu.ops.intersect_pallas import TILE as _TILE
+    from mafrixraytracing_tpu.ops.intersect_pallas import BLOCK
 
     Bc = -(-B // n_chunks)
-    Bc = -(-Bc // _TILE) * _TILE
+    Bc = -(-Bc // BLOCK) * BLOCK
     B_pad = n_chunks * Bc
     px, py = make_pixel_uv(width, height)
     perm, inv = tiled_pixel_order(width, height, *_spp_tile_shape(G))
@@ -885,15 +866,14 @@ def render_image(
         px = jnp.concatenate([px, px[reps]])
         py = jnp.concatenate([py, py[reps]])
     base_keys = rng.pixel_keys(key, B_pad)
-    # interleave: a pixel's G samples sit consecutively, so one TILE-ray
-    # intersector tile covers only TILE/G distinct pixels — the tile frustum
-    # shrinks to a ~2x2..4x4 pixel block and far fewer clusters survive the
-    # cull (the dominant kernel cost is proportional to survivors)
+    # interleave: a pixel's G samples sit consecutively, so one intersector
+    # ray block covers only BLOCK/G distinct pixels — the block frustum
+    # shrinks to a few pixels and far fewer clusters survive the cull (the
+    # dominant kernel cost is proportional to survivors)
     pxg, pyg = jnp.repeat(px, G), jnp.repeat(py, G)
 
     def one_group(acc, step):
-        # acc is a flat 3-tuple of (B_pad,) columns: (B, 3) scan carries get
-        # the padded default {1,0} layout (42x traffic; see _flatten_carry)
+        # acc is a flat 3-tuple of (B_pad,) columns (see core.v3)
         g = step // n_chunks
         ci = step % n_chunks
         off = ci * Bc
@@ -922,8 +902,9 @@ def render_image(
     if config.remat:
         # saved attribute columns persist for the WHOLE scan:
         # spp * depth * pixels * 144 bytes. Auto-fall back to the lean
-        # policy when that would not fit comfortably in HBM (e.g. Renault
-        # 1024^2 @ 256 spp would need ~184 GB).
+        # policy when that would not fit comfortably in device memory (e.g.
+        # Renault 1024^2 @ 256 spp would need ~184 GB). The 4 GB limit is a
+        # fixed size that has not been tuned on the GPU.
         attr_gb = spp * config.max_depth * B * 144 / 1e9
         policy = (SAVE_ISECT_ATTRS if config.save_attrs and attr_gb <= 4.0
                   else SAVE_ISECT)

@@ -5,7 +5,7 @@ Parity target: the reference's (commented-out) Whitted tracer
 local shading at the first diffuse hit, and the RTIOW sky-gradient miss
 shader its dead tracers share (`Core/Tracer/PathTracer.fs:48-67`).
 
-TPU-native redesign — a *deterministic* wavefront loop (`lax.scan` over
+Wavefront redesign — a *deterministic* wavefront loop (`lax.scan` over
 depth), no Monte Carlo anywhere:
 
 - miss        -> throughput * sky gradient, retire.

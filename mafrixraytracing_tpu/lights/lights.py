@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from mafrixraytracing_tpu.core import struct
 from jax import Array
 
 from mafrixraytracing_tpu.core import rng
@@ -182,7 +182,7 @@ from mafrixraytracing_tpu.materials.bsdf import eval_bsdf_soa  # noqa: E402
 
 def packed_light_table(scene):
     """(L, 16) joined light-row matrix so the per-ray light fetch is ONE row
-    gather (TPU gathers are serial per-row; 5 narrow gathers cost ~5x):
+    gather instead of five narrow ones:
     0:3 v0 | 3:6 e1 | 6:9 e2 | 9:12 normal | 12:15 radiance |
     15 flags (1 = two_sided, 2 = live)."""
     flags = (
@@ -209,15 +209,7 @@ def nee_area_soa(scene, hit, key, occluded_fn, mis: bool, sh, wo=None):
     L = scene.light_v0.shape[0]
     li = jnp.searchsorted(scene.light_cdf, u_pick, side="right")
     li = jnp.clip(li, 0, L - 1).astype(jnp.int32)
-    table = packed_light_table(scene)
-    if L <= 32:
-        # one-hot matmul row fetch: a (B,)-indexed gather is a serial
-        # per-row loop (~3.5 ms at B=512k) while (B,L)@(L,16) on the MXU is
-        # ~0.3 ms for these tiny light tables
-        onehot = (li[:, None] == jnp.arange(L)[None, :]).astype(jnp.float32)
-        row = jnp.dot(onehot, table, preferred_element_type=jnp.float32)
-    else:
-        row = table[li]  # (B, 16)
+    row = packed_light_table(scene)[li]  # (B, 16): one row gather
     vec = lambda k: V3(row[:, k], row[:, k + 1], row[:, k + 2])
     b = uniform_triangle(u_bary)
     p = vec(0) + vec(3) * b[..., 0] + vec(6) * b[..., 1]

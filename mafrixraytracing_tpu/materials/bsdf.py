@@ -5,8 +5,8 @@ Replaces the reference's `IMaterial`/`IBxdf` class zoo
 `ScenePytree.mat_*`) indexed per hit — the SIMD analog of
 `MaterialManager[hit.materialIndex]` (`Core/Integrator/Integrators.fs:118`).
 All material branches are evaluated arithmetically and blended with
-`jnp.where` on the type id: on TPU this is far cheaper than divergent
-control flow, and it keeps the whole shader differentiable.
+`jnp.where` on the type id: no divergent control flow across a
+wavefront, and the whole shader stays differentiable.
 
 Conventions: `wo` points *away* from the surface (toward the previous
 vertex); `n` is the shading normal oriented against the incident ray;
@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from mafrixraytracing_tpu.core import struct
 from jax import Array
 
 from mafrixraytracing_tpu.core import rng
@@ -56,9 +56,8 @@ def surface_albedo(scene, hit):
 def make_shading(scene, hit):
     """Gather-based `Shading` construction — the compatibility path for
     callers without the packed row fetch (see
-    `geometry.intersect.hit_attributes_packed` for the fast one-gather path:
-    TPU gathers are serial per-row, so the 6 table gathers here cost ~10x
-    the packed row)."""
+    `geometry.intersect.hit_attributes_packed` for the one-gather path the
+    integrators use)."""
     from mafrixraytracing_tpu.core.types import Shading
 
     m = hit.material

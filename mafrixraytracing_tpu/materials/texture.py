@@ -2,7 +2,7 @@
 
 The reference samples textures nearest-neighbor from per-object `Color[,]`
 arrays (`Core/Texture.fs:11-28`, vertical flip at load `Texture.fs:43`).
-TPU-native form: all scene textures live in ONE fixed-size atlas array
+Array form: all scene textures live in ONE fixed-size atlas array
 `(K, R, R, 3)` so the material table stays a flat SoA (no per-material
 ragged shapes, one gather path); sampling is bilinear with wrap, and the
 vertical flip happens at *sample* time (OBJ `vt` has v pointing up, image
@@ -89,7 +89,7 @@ def sample_atlas(atlas: Array, tex_id: Array, uv: Array,
 
     mode="nearest" matches the reference's `Texture2D` sampler
     (`Core/Texture.fs:11-28`) and costs ONE gather; "bilinear" costs four
-    (TPU gathers are serial per-row, so the hot render path uses nearest)."""
+    (the hot render path uses nearest)."""
     K, R = atlas.shape[0], atlas.shape[1]
     tid = jnp.clip(tex_id, 0, K - 1)
     u = jnp.mod(uv[..., 0], 1.0) * (R - 1)

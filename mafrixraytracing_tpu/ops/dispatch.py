@@ -1,10 +1,14 @@
-"""Intersection backend dispatch: Pallas TPU kernels vs. jnp reference.
+"""Intersection backend dispatch: Pallas cluster-walk kernels vs. jnp.
 
 The jnp path (`geometry.intersect`) is always correct and differentiable;
-the Pallas path accelerates the closest-hit *search* on TPU and reuses the
-same differentiable attribute recompute for gradients. `backend="auto"`
-selects Pallas on TPU when the scene fits its kernel's assumptions, else
-falls back to jnp.
+the Pallas path accelerates the closest-hit *search* on the GPU and reuses
+the same differentiable attribute recompute for gradients.
+
+- `backend="auto"`: the kernels on `gpu` when the scene fits them, jnp
+  everywhere else (on `cpu` the kernels would only run interpreted).
+- `backend="pallas"`: the kernels, compiled on `gpu` and interpreted on
+  `cpu`; a scene they cannot take raises instead of falling back.
+- `backend="jnp"`: the dense reference scan.
 
 Search results are tagged with `checkpoint_name` ('isect_t', 'isect_idx',
 'occluded'): under `jax.checkpoint(policy=save_only_these_names(...))`
@@ -23,13 +27,6 @@ from mafrixraytracing_tpu.geometry import intersect as isect
 ISECT_NAMES = ("isect_t", "isect_idx", "occluded")
 
 
-def _pallas_available() -> bool:
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
-
-
 def _use_pallas(scene, backend: str) -> bool:
     if backend == "jnp":
         return False
@@ -37,8 +34,16 @@ def _use_pallas(scene, backend: str) -> bool:
 
     ok = intersect_pallas.supports(scene)
     if backend == "pallas":
-        return ok
-    return ok and _pallas_available()
+        if not ok:
+            raise ValueError(
+                "backend='pallas' needs a clustered scene (triangle count a "
+                "multiple of 128 with one AABB per 128 triangles); compile "
+                "it with scene.compiler.compile_scene"
+            )
+        return True
+    if backend != "auto":
+        raise ValueError(f"unknown intersection backend {backend!r}")
+    return ok and jax.default_backend() == "gpu"
 
 
 def intersect_scene(scene, rays: Rays, t_min, t_max, chunk=1024, backend="auto"):

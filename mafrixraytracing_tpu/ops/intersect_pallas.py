@@ -1,41 +1,40 @@
-"""Pallas TPU closest-hit + any-hit kernels over Morton-clustered triangles.
+"""Closest-hit and any-hit cluster walks as Pallas kernels (Triton route).
 
-The hot loop of the whole framework — the TPU-native replacement for the
+The hot loop of the whole framework — the wavefront replacement for the
 reference's recursive BVH traversal + per-ray Moller-Trumbore
 (`Core/Accelerate/BvhNode.fs:62-83`, `Core/Shape/Trangle.fs:120-145`).
 
 Two-phase design (build in `accel.clusters`):
 
-1. **Cull (XLA, vectorized):** slab-test every ray against every cluster
-   AABB as one dense (B, C) VPU computation, reduce to per-ray-tile
-   survivor lists sorted by conservative entry distance (front-to-back).
-   This keeps all data-dependent control flow out of the kernel.
-2. **Intersect (Pallas):** grid over ray tiles of 128; each tile's ordered
-   cluster list, survivor count, and entry distances arrive via scalar
-   prefetch. The kernel walks the list front-to-back in chunks of
-   `EXIT_CHECK` clusters; after each chunk it compares the next cluster's
-   conservative entry distance against the tile's worst best-hit and exits
-   when no ray can still be improved — the wavefront analog of ordered BVH
-   descent with early termination. (Checking every cluster was measured
-   slower: each vector->scalar reduce serializes the VPU pipeline; chunking
-   amortizes it.)
+1. **Cull (XLA, dense):** slab-test every ray against every cluster AABB as
+   one dense (B, C) computation, reduce to one survivor list per block of
+   `BLOCK` rays, sorted by the block's conservative entry distance
+   (front-to-back). All data-dependent control flow stays out of the
+   kernel's setup.
+2. **Walk (Pallas, Triton route):** one program per ray block. The program
+   loads its own list row, survivor count and entry distances from device
+   memory and walks the list front to back in a `lax.while_loop`; it exits
+   as soon as the next entry lies at or past the block's worst best-hit
+   distance (the wavefront analog of ordered BVH descent with early
+   termination). Rays sit on rows and a cluster's 128 triangles on
+   columns, so each visited cluster is one dense (BLOCK, 128) tile of
+   Moller-Trumbore tests held in registers; the 9 x 128 packed cluster
+   rows stream from L2 (the whole pack is a few MB).
 
-Data layout is chosen for the VPU: rays live on *sublanes* (a tile is 128
-rays), triangles on *lanes* (a cluster is 128 triangles), so every
-per-cluster triangle component is a native row slice of a component-major
-(C*16, 128) VMEM array and every ray-triangle quantity is a dense
-(128, 128) vector op. No per-lane control flow anywhere.
-
-Shadow rays use a separate **any-hit** kernel: no best-hit bookkeeping, and
-the tile exits as soon as every live lane is occluded.
+Shadow rays use a separate **any-hit** kernel: no best-hit bookkeeping,
+and the block exits as soon as every live ray is occluded.
 
 Differentiability: this module only performs the *search* (t, index); the
 differentiable attribute recompute stays in
-`geometry.intersect.hit_attributes` (detached-selection
+`geometry.intersect.hit_attributes*` (detached-selection
 reparameterization), so backward cost is O(rays) regardless of scene size.
-The search results are tagged with `checkpoint_name` so a surrounding
-`jax.checkpoint(policy=save_only_these_names(...))` saves them instead of
-re-running the kernels in the backward pass (see `integrator.path`).
+The search results are tagged with `checkpoint_name` (in `ops.dispatch`) so
+a surrounding `jax.checkpoint(policy=save_only_these_names(...))` saves
+them instead of re-running the kernels in the backward pass.
+
+Numerics: the hit test is the reference's float32 Moller-Trumbore
+arithmetic with a true divide — there is no matrix product, so TF32 never
+applies.
 """
 from __future__ import annotations
 
@@ -44,220 +43,78 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import jax.experimental.pallas as pl
+import numpy as np
 from jax import lax
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from mafrixraytracing_tpu.accel.clusters import CLUSTER_SIZE, SUPER
 
-import os as _os
-
-# Tuning knobs. Defaults were swept on a real v5e (round 3, re-swept round
-# 4): TILE=128 amortizes per-grid-step overhead best once the cull is
-# tight, and EXIT_CHECK=4 balances the (vector -> scalar serializing)
-# early-exit reduce against wasted cluster tests (8 and 2 are ~2-3%
-# slower on the spot bench). The MFX_* env overrides exist for sweeps only —
-# values are validated here so a bad sweep value fails fast instead of
-# deep inside Mosaic.
-TILE = int(_os.environ.get("MFX_TILE", "128"))
-                    # rays per grid step (sublane axis)
-GROUP = 8           # tiles per SMEM list block (sublane alignment)
-ROWS = 16           # rows per cluster in the packed triangle array
+# Rays per program (a power of two) and warps per program: the fastest
+# pair of a sweep of BLOCK in {8..128} x warps in {2, 4, 8} on an H100
+# (PERF.md). Every wavefront alignment in the integrator (pixel tiles, spp
+# grouping, compaction buckets) reads BLOCK from here.
+BLOCK = 8
+NUM_WARPS = 4
+NUM_STAGES = 1
+ROWS = 9            # rows per cluster in the packed triangle array
 BIG = 1e30
 DET_EPS = 1e-10
-MAX_VMEM_TRIS = 200_000  # (T/128, 16, 128) f32 must fit comfortably in VMEM
-EXIT_CHECK = int(_os.environ.get("MFX_EXIT_CHECK", "4"))
-                    # clusters between early-termination checks (closest)
-EXIT_CHECK_ANY = int(_os.environ.get("MFX_EXIT_CHECK_ANY", str(EXIT_CHECK)))
-                    # same for the any-hit walk: its exit fires as soon as
-                    # every lane is blocked, so a smaller chunk can pay
-                    # where the closest walk prefers a larger one
-assert TILE % 8 == 0 and 8 <= TILE <= 128, f"MFX_TILE={TILE}: need a multiple of 8 in [8, 128]"
-assert EXIT_CHECK >= 1, f"MFX_EXIT_CHECK={EXIT_CHECK}: need >= 1"
-assert EXIT_CHECK_ANY >= 1, f"MFX_EXIT_CHECK_ANY={EXIT_CHECK_ANY}: need >= 1"
+_IMAX = 2**31 - 1
 
 # Scenes with more than this many clusters cull rays at SUPERcluster
 # granularity ((B, S) slabs, 16x smaller) and let the kernel refine each
-# surviving supercluster against its child cluster AABBs in VMEM. Small
-# scenes keep the flat single-level walk: the per-child refinement costs a
-# scalar reduce per cluster, which only pays once the dense cull would
-# otherwise dominate. Env override exists so tests can force the two-level
-# path on tiny scenes.
-SUPER_MIN_C = int(_os.environ.get("MFX_SUPER_MIN_C", "128"))
-
-# Round 5 experiment: cull inside the kernel (slab test + in-register
-# bitonic ordering per ray tile) instead of the XLA-side dense (B, C) cull.
-# Measured on v5e (512k primary rays, spot): the in-kernel cull itself is
-# cheap (~0.3 us/tile — fused ANY-HIT beats the XLA-cull path 1.22 vs
-# 1.38 ms), but the fused CLOSEST walk pays two vector->scalar extractions
-# per visited cluster (head id + head entry of the rolled list), each of
-# which drains the VPU pipeline: 18.2 vs 8.2 ms. Until the walk can read
-# the sorted list through SMEM again (split cull/walk kernels), the XLA
-# cull stays the default; the fused path remains available for sweeps
-# (MFX_FUSED_CULL=1) and is regression-tested in interpret mode.
-FUSED_CULL = _os.environ.get("MFX_FUSED_CULL", "0") == "1"
-
-# Tile-frustum cull (round 5 experiment, NON-default): cull whole 128-ray
-# tiles with one interval-arithmetic slab test per (tile, cluster) instead
-# of per (ray, cluster) — 128x less cull arithmetic, conservative superset
-# lists (see `_cull_frustum`), bit-identical kernel results. Measured on
-# the spot bench: the cull math savings (~12 ms/iter) are swamped by the
-# longer walks the looser lists cause on bounce tiles (13.3M -> 8.7M
-# rays/s), even with the coherence-sorted wavefront — a 128-ray tile after
-# a diffuse bounce still spans enough origin/direction volume that the
-# interval frustum passes most clusters. Kept for scenes/tiles with truly
-# coherent rays; MFX_FRUSTUM_CULL=1 enables it.
-FRUSTUM_CULL = _os.environ.get("MFX_FRUSTUM_CULL", "0") == "1"
+# surviving supercluster against its child cluster AABBs.
+SUPER_MIN_C = 128
 
 # t_min arrives as a STATIC Python float (PathTracerConfig.t_min is a
 # hashable jit-static, and the NEE shadow epsilon is a module constant), so
-# it is baked into each kernel specialization at trace time — the Pallas
-# path honors `config.t_min` exactly like the jnp backend does (the
-# reference's epsilon protocol is likewise a parameter,
-# `Integrators.fs:44,108`). A traced t_min raises loudly in
-# `find_closest_soa` / `occluded_soa` instead of being silently replaced.
+# it is baked into each kernel specialization at trace time — the kernels
+# honor `config.t_min` exactly like the jnp backend does (the reference's
+# epsilon protocol is likewise a parameter, `Integrators.fs:44,108`). A
+# traced t_min raises loudly in `find_closest_soa` / `occluded_soa`.
 
 
 def supports(scene) -> bool:
     T = scene.tri_v0.shape[0]
     return (
         T % CLUSTER_SIZE == 0
-        and T <= MAX_VMEM_TRIS
         and scene.cluster_min.shape[0] * CLUSTER_SIZE == T
     )
 
 
-# ---------------------------------------------------------------------------
-# Phase 1: vectorized cull (pure jnp -> VPU)
-# ---------------------------------------------------------------------------
-
-
-def _bitonic_argsort_rows(entry):
-    """Row-wise ascending sort of (rows, C) float keys, returning
-    (sorted_keys, sorted_ids). A hand-rolled bitonic network: ~log^2(C)
-    stages of static lane permutes + selects, which the VPU chews through in
-    microseconds — `jnp.argsort` lowers to XLA's generic sort and costs
-    milliseconds at these shapes (measured 4 ms for (4096, 64), ~20x this).
-    Ties broken by id so the result is deterministic."""
-    import numpy as np
-
-    C = entry.shape[1]
-    Cp = 1 << max(1, (C - 1).bit_length())
-    if Cp != C:
-        entry = jnp.pad(entry, ((0, 0), (0, Cp - C)), constant_values=BIG)
-    key = entry
-    val = jnp.broadcast_to(
-        jnp.arange(Cp, dtype=jnp.int32)[None, :], entry.shape
+def resolve_interpret(interpret=None) -> bool:
+    """Interpret mode on the CPU, compiled through Triton on the GPU; any
+    other platform has no route to these kernels."""
+    if interpret is not None:
+        return bool(interpret)
+    platform = jax.default_backend()
+    if platform == "cpu":
+        return True
+    if platform == "gpu":
+        return False
+    raise RuntimeError(
+        f"the Pallas intersection kernels run on 'gpu' (Triton) or 'cpu' "
+        f"(interpret mode), not on '{platform}'"
     )
-    idx = np.arange(Cp)
-    k = 2
-    while k <= Cp:
-        j = k // 2
-        while j >= 1:
-            partner = idx ^ j
-            pk = key[:, partner]
-            pv = val[:, partner]
-            # ascending within blocks of k, direction flips per block
-            take_min = ((idx & k) == 0) == ((idx & j) == 0)
-            take_min = jnp.asarray(take_min[None, :])
-            less = (pk < key) | ((pk == key) & (pv < val))
-            want_partner = jnp.where(take_min, less, ~less)
-            key = jnp.where(want_partner, pk, key)
-            val = jnp.where(want_partner, pv, val)
-            j //= 2
-        k *= 2
-    return key[:, :C], val[:, :C]
 
 
-def _cull_frustum(o, d, t_max, cmin, cmax):
-    """Per-tile FRUSTUM cull: interval-arithmetic slab test of each ray
-    tile's bounding frustum (componentwise origin box x direction box)
-    against every cluster AABB — (tiles, C) work instead of the per-ray
-    (B, C) dense slab (128x less arithmetic; the per-ray cull was ~3 ms per
-    query at B=512k and pure VPU math no matter where it ran).
-
-    CONSERVATIVE by construction: for any ray in the tile,
-      TN_low <= tn(ray)  (max over axes of the interval product minimum
-                          lower-bounds the per-ray entry: min_r max_a >=
-                          max_a min_r), and
-      TF_up  >= tf(ray)  (min over axes of the interval product maximum).
-    So the survivor set is a superset of the per-ray cull's, entries
-    lower-bound true entries, and `far` upper-bounds true exits — the walk
-    kernels apply exact per-ray tests, so results are bit-identical, only
-    the candidate lists are (slightly) longer. The wavefront is coherence-
-    sorted between bounces (integrator pack), which keeps tile frusta
-    tight; dead rays (t_max <= 0) are excluded from the tile bounds.
-
-    Same return contract as `_cull`."""
-    B = o.x.shape[0]
-    n_tiles = B // TILE
-    C = cmin.shape[0]
-    live_ray = t_max > 0.0
-
-    def tile_bounds(c, live):
-        cr = c.reshape(n_tiles, TILE)
-        lo = jnp.min(jnp.where(live, cr, BIG), axis=1)
-        hi = jnp.max(jnp.where(live, cr, -BIG), axis=1)
-        return lo, hi
-
-    lr = live_ray.reshape(n_tiles, TILE)
-    TN = jnp.full((n_tiles, C), -BIG, jnp.float32)
-    TF = jnp.full((n_tiles, C), BIG, jnp.float32)
-    for oa, da, a in ((o.x, d.x, 0), (o.y, d.y, 1), (o.z, d.z, 2)):
-        olo, ohi = tile_bounds(oa, lr)
-        dlo, dhi = tile_bounds(da, lr)
-        # pure-sign direction interval -> reciprocal interval; mixed-sign
-        # (or zero-width degenerate) tiles leave this axis unconstrained
-        pure = (dlo > 1e-12) | (dhi < -1e-12)
-        sd1 = jnp.where(pure, dlo, 1.0)
-        sd2 = jnp.where(pure, dhi, 1.0)
-        iv1, iv2 = 1.0 / sd1, 1.0 / sd2
-        # numerator interval ends for (cmin - o) and (cmax - o)
-        p1 = cmin[None, :, a] - ohi[:, None]
-        p2 = cmin[None, :, a] - olo[:, None]
-        q1 = cmax[None, :, a] - ohi[:, None]
-        q2 = cmax[None, :, a] - olo[:, None]
-        # per-ray tn_a = min(t0, t1), tf_a = max(t0, t1): the extremes over
-        # the tile are the min/max over all 8 interval products
-        lo8 = hi8 = None
-        for x in (p1, p2, q1, q2):
-            for iv in (iv1, iv2):
-                prod = x * iv[:, None]
-                lo8 = prod if lo8 is None else jnp.minimum(lo8, prod)
-                hi8 = prod if hi8 is None else jnp.maximum(hi8, prod)
-        lo8 = jnp.where(pure[:, None], lo8, -BIG)
-        hi8 = jnp.where(pure[:, None], hi8, BIG)
-        TN = jnp.maximum(TN, lo8)
-        TF = jnp.minimum(TF, hi8)
-
-    any_live = jnp.any(lr, axis=1)
-    tmax_hi = jnp.max(jnp.where(lr, t_max.reshape(n_tiles, TILE), -BIG), axis=1)
-    live_c = (cmin[:, 0] <= cmax[:, 0])[None, :]
-    hit = (live_c & any_live[:, None] & (TN <= TF) & (TF > 0.0)
-           & (TN < tmax_hi[:, None]))
-    tile_entry = jnp.where(hit, jnp.maximum(TN, 0.0), BIG)
-    entries, order = _bitonic_argsort_rows(tile_entry)
-    counts = jnp.sum(hit, axis=1).astype(jnp.int32)
-    far_tile = jnp.max(jnp.where(hit, TF, -BIG), axis=1)  # (tiles,)
-    far = jnp.minimum(
-        jnp.broadcast_to(far_tile[:, None], (n_tiles, TILE)).reshape(B),
-        t_max,
-    )
-    return order, counts, entries, far
+# ---------------------------------------------------------------------------
+# Phase 1: dense cull (plain jnp, fused by XLA)
+# ---------------------------------------------------------------------------
 
 
 def _cull(o, d, t_max, cmin, cmax):
-    """Per-ray-tile *ordered* cluster lists. o, d: V3 of (B,) columns
-    (core.v3 — (B, 3) arrays pay a 42x layout-padding tax when
-    materialized); t_max: (B,); cmin/cmax: (C, 3). Returns:
-      lists   (tiles, C) i32 — cluster ids sorted by conservative entry
+    """Per-block *ordered* cluster lists. o, d: V3 of (B,) columns; t_max:
+    (B,); cmin/cmax: (C, 3). Returns:
+      lists   (blocks, C) i32 — cluster ids sorted by conservative entry
               distance (front-to-back), surviving clusters first
-      counts  (tiles,)  i32 — number of survivors
-      entries (tiles, C) f32 — tile-min entry distance per sorted slot
-      far     (B,)      f32 — farthest AABB *exit* among the ray's own
+      counts  (blocks, 1) i32 — number of survivors
+      entries (blocks, C) f32 — block-min entry distance per sorted slot
+      far     (B,)        f32 — farthest AABB *exit* among the ray's own
               surviving clusters: once the front-to-back walk passes this
               distance no future cluster can overlap the ray, so the ray is
-              resolved even without a hit. This is what lets tiles that
-              contain sky/miss rays early-exit at all.
+              resolved even without a hit. This is what lets blocks that
+              contain sky/miss rays exit early at all.
     """
     B = o.x.shape[0]
     # per-axis accumulation keeps temps at (B, C) instead of (B, C, 3)
@@ -279,803 +136,207 @@ def _cull(o, d, t_max, cmin, cmax):
     entry = jnp.where(hit, jnp.maximum(tn, 0.0), BIG)
     far = jnp.max(jnp.where(hit, tf, -BIG), axis=1)
     far = jnp.minimum(far, t_max)
-    n_tiles = B // TILE
-    tile_entry = jnp.min(entry.reshape(n_tiles, TILE, -1), axis=1)  # (tiles, C)
-    entries, order = _bitonic_argsort_rows(tile_entry)
-    counts = jnp.sum(tile_entry < BIG, axis=1).astype(jnp.int32)
-    return order, counts, entries, far
+    block_entry = jnp.min(entry.reshape(B // BLOCK, BLOCK, -1), axis=1)
+    # row sort of (entry, id): stable, so equal entries keep ascending id
+    ids = lax.broadcasted_iota(jnp.int32, block_entry.shape, 1)
+    entries, order = lax.sort((block_entry, ids), dimension=1, num_keys=1)
+    counts = jnp.sum(block_entry < BIG, axis=1, keepdims=True)
+    return order, counts.astype(jnp.int32), entries, far
 
 
 # ---------------------------------------------------------------------------
-# Phase 2: Pallas kernels
+# Phase 2: the walk kernels
 # ---------------------------------------------------------------------------
 
 
-def _mt_terms(rc, tri_ref, c):
-    """Dense plane + precomputed-barycentric hit test for one
-    (ray tile) x (cluster) block — algebraically equal to Moller-Trumbore
-    (`Core/Shape/Trangle.fs:120-145`) but ~40 VPU ops/pair instead of ~70:
-    the per-triangle constants (plane normal/offset, barycentric gradients)
-    are folded at pack time (`pack_tris`), so the kernel only evaluates
-      t = (dp - n.o) / (n.d);  p = o + t d;  u = g1.p - c1;  v = g2.p - c2.
-    rc: tuple of (TILE, 1) ray columns; c: cluster id (scalar).
-    Returns (t, valid_geom) as (TILE, CLUSTER_SIZE) arrays; t is the signed
-    hit distance with no range test applied, valid_geom covers det/u/v."""
-    ox, oy, oz, dx, dy, dz = rc
-    base = pl.multiple_of(c * ROWS, ROWS)
-    blk = tri_ref[pl.ds(base, ROWS), :]  # (16, 128): component-major rows
-    nx, ny, nz, dp = blk[0:1, :], blk[1:2, :], blk[2:3, :], blk[3:4, :]
-    g1x, g1y, g1z, c1 = blk[4:5, :], blk[5:6, :], blk[6:7, :], blk[7:8, :]
-    g2x, g2y, g2z, c2 = blk[8:9, :], blk[9:10, :], blk[10:11, :], blk[11:12, :]
-
-    det = dx * nx + dy * ny + dz * nz      # n.d (128 rays x 128 tris)
+def _mt_test(rays, tri_ref, c):
+    """Moller-Trumbore (`Core/Shape/Trangle.fs:120-145`) of one ray block
+    against cluster `c`, in the same arithmetic as the jnp reference
+    (`geometry.intersect.tri_hit_terms`), so both searches agree on t to a
+    few ulps and on which of two triangles sharing an edge is nearer.
+    rays: six (BLOCK, 1) columns. Returns (t, valid) as (BLOCK, 128); t is
+    the signed hit distance with no range test applied, valid covers
+    det/u/v."""
+    ox, oy, oz, dx, dy, dz = rays
+    base = c * ROWS
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
+        tri_ref[base + k, :][None, :] for k in range(ROWS)
+    )
+    # pvec = d x e2
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
     ok = jnp.abs(det) > DET_EPS
-    safe = jnp.where(ok, det, 1.0)
-    # approximate reciprocal + one Newton step: ~f32 accuracy without the
-    # VPU's slow true divide
-    r0 = pl.reciprocal(safe, approx=True)
-    invd = r0 * (2.0 - safe * r0)
-    t = (dp - (ox * nx + oy * ny + oz * nz)) * invd
-    px = ox + t * dx
-    py = oy + t * dy
-    pz = oz + t * dz
-    u = g1x * px + g1y * py + g1z * pz - c1
-    v = g2x * px + g2y * py + g2z * pz - c2
+    inv_det = jnp.where(ok, 1.0 / jnp.where(ok, det, 1.0), 0.0)
+    tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    # qvec = tvec x e1
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
     valid = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
     return t, valid
 
 
-def _ray_rows(ray_refs, r):
-    """Extract one tile's ray columns from the 8 per-component refs.
-
-    `ray_refs` = (ox oy oz dx dy dz tmax far) refs of (8, TILE) blocks over
-    (n_tiles, TILE) arrays that are pure BITCASTS of the integrator's flat
-    (B,) columns; `r = program_id % 8` selects this tile's row. Returns
-    (rc6, t_max, far) as (TILE, 1) columns via in-kernel transposes.
-
-    Why this shape: a (B, 8) ray record array tiles as T(8,128) with the
-    minor dim padded 8 -> 128, and — much worse — XLA lowers the fusions
-    PRODUCING its concat operands in the same degenerate (*, 1)-window
-    layout, executing all the shading math fused with them at 1/128 lane
-    utilization (round-5 trace: 10+ ms "elementwise" fusions whose outputs
-    fed the ray-record concat). Component-major (n_tiles, TILE) operands
-    are layout-identical to dense (B,) columns, so the producing fusions
-    stay dense and the only cost is ONE in-register transpose per tile:
-    the 8 component rows concatenate to an (8, TILE) block first, so the
-    XLU runs a single (8,128)->(128,8) transpose instead of 8 degenerate
-    (1,128)->(128,1) ones (the per-tile fixed overhead was ~half the walk
-    kernels' time at spot-sized survivor counts)."""
-    rows8 = jnp.concatenate(
-        [ref[pl.ds(r, 1), :] for ref in ray_refs], axis=0
-    )  # (8, TILE)
-    rt = rows8.T  # (TILE, 8)
-    cols = tuple(rt[:, i:i + 1] for i in range(8))
-    return cols[0:6], cols[6], cols[7]
+def _load_rays(ray_refs):
+    cols = [ref[...] for ref in ray_refs]
+    rays = tuple(c[:, None] for c in cols[:6])
+    return rays, cols[6], cols[7]
 
 
-def _closest_kernel(
-    list_ref, count_ref, entry_ref, ox, oy, oz, dx, dy, dz, tm, fr,
-    tri_ref, t_out, i_out, *, t_min
-):
-    """One ray tile vs. its surviving clusters, front-to-back with chunked
-    early termination.
+def _inv_dirs(ray_refs):
+    """Origins and reciprocal directions as (BLOCK,) columns (child slab
+    tests of the two-level walk)."""
+    o = [ref[...] for ref in ray_refs[:3]]
+    inv = []
+    for ref in ray_refs[3:6]:
+        da = ref[...]
+        inv.append(1.0 / jnp.where(jnp.abs(da) > 1e-12, da,
+                                   jnp.where(da >= 0, 1e-12, -1e-12)))
+    return o, inv
 
-    list_ref:  (GROUP, C) i32 SMEM block — cluster ids, front-to-back; this
-               tile's row is `program_id % GROUP` (see `_search_specs`)
-    count_ref: (GROUP, 1) i32 SMEM block — number of survivors
-    entry_ref: (GROUP, C) f32 SMEM block — tile-min entry distances
-    ox..fr:    (8, TILE) component-major ray blocks (see `_ray_rows`)
-    tri_ref:   (C*16, 128) packed component-major triangles (VMEM, full)
-    t_out/i_out: (8, TILE) best hit distance / global tri index (-1 = miss),
-               one row per tile (bitcast back to (B,) outside)
 
-    Best-hit bookkeeping is *deferred per lane*: each (ray, lane) slot keeps
-    its own running best (t, tri id) with two selects per cluster, and the
-    cross-lane argmin reduce runs once at the end instead of once per
-    cluster — per-cluster cost is the intersection math alone.
+def _child_hits(inv_rays, bounds_ref, c, limit):
+    """(BLOCK,) bool: which rays could still hit child cluster `c` within
+    their per-ray `limit`. bounds_ref rows: [min xyz, max xyz, live, 0]. The
+    entry comparison is INCLUSIVE (flat children have entry == exit)."""
+    o, inv = inv_rays
+    tn = jnp.full(limit.shape, -BIG, jnp.float32)
+    tf = jnp.full(limit.shape, BIG, jnp.float32)
+    for a in range(3):
+        t0 = (bounds_ref[c, a] - o[a]) * inv[a]
+        t1 = (bounds_ref[c, 3 + a] - o[a]) * inv[a]
+        tn = jnp.maximum(tn, jnp.minimum(t0, t1))
+        tf = jnp.minimum(tf, jnp.maximum(t0, t1))
+    return (bounds_ref[c, 6] > 0.5) & (tn <= tf) & (tf > 0.0) & (tn <= limit)
+
+
+def _visit(entry, visit_cluster, carry, two_level, inv_rays, bounds_ref,
+           limit):
+    """Visit one list entry: a cluster, or (two-level) each of the
+    supercluster's 16 children that some ray can still hit within
+    `limit(carry)` — the others cost one slab test, not a cluster test."""
+    if not two_level:
+        return visit_cluster(entry, carry)
+
+    def child(j, carry):
+        c = entry * SUPER + j
+        live = jnp.max(_child_hits(inv_rays, bounds_ref, c,
+                                   limit(carry)).astype(jnp.int32))
+        return lax.cond(live > 0, partial(visit_cluster, c),
+                        lambda x: x, carry)
+
+    return lax.fori_loop(0, SUPER, child, carry)
+
+
+def _closest_kernel(list_ref, count_ref, entry_ref, *refs, t_min,
+                    two_level):
+    """One ray block against its surviving clusters, front to back.
+
+    list_ref/entry_ref: (C,) this block's sorted cluster (or, two-level,
+    supercluster) ids / entries; count_ref: (1,) survivor count; refs: the
+    eight (BLOCK,) ray columns [ox oy oz dx dy dz t_max far], the whole
+    (C*9, 128) triangle pack, the (S*16, 8) child bounds when two-level,
+    then the outputs t/i: (BLOCK,) best distance and global triangle index
+    (-1 = miss).
 
     Tie-break contract: among exactly-equal best distances the SMALLEST
-    GLOBAL TRIANGLE INDEX wins (the epilogue reduces indices with min over
-    equal-t lanes). The jnp reference path reduces the same way, so index
-    equality holds even for shared-edge hits (tests/test_pallas.py).
+    GLOBAL TRIANGLE INDEX wins, as in the jnp reference's reduction.
 
-    Early exit: a ray is resolved when `min(best over lanes, far) <= next
-    cluster entry` — `far` (the exit distance of the ray's last surviving
-    cluster, from the cull) bounds where the ray can still find geometry,
-    so miss/sky rays resolve too instead of pinning the tile at t_max.
+    Early exit: a ray is resolved once `min(best, far)` lies before the next
+    entry — `far` (the exit distance of the ray's last surviving cluster,
+    from the cull) bounds where it can still find geometry, so miss/sky
+    rays resolve too instead of pinning the block at t_max.
     """
-    r = pl.program_id(0) % GROUP
-    rc, t_max, far = _ray_rows((ox, oy, oz, dx, dy, dz, tm, fr), r)
-    lanes = lax.broadcasted_iota(jnp.int32, (TILE, CLUSTER_SIZE), 1)
-    n = count_ref[r, 0]
+    ray_refs, tri_ref = refs[:8], refs[8]
+    bounds_ref = refs[9] if two_level else None
+    t_out, i_out = refs[-2:]
+    rays, t_max, far = _load_rays(ray_refs)
+    inv_rays = _inv_dirs(ray_refs) if two_level else None
+    lanes = lax.broadcasted_iota(jnp.int32, (BLOCK, CLUSTER_SIZE), 1)
+    n = count_ref[0]
 
-    def test_cluster(k, best_t, best_i):
-        c = list_ref[r, k]
-        t, valid = _mt_terms(rc, tri_ref, c)
-        valid = valid & (t > t_min) & (t < best_t)
-        new_t = jnp.where(valid, t, best_t)
-        new_i = jnp.where(valid, lanes + c * CLUSTER_SIZE, best_i)
-        return new_t, new_i
-
-    def chunk_body(state):
-        k, best_t, best_i = state
-
-        def one(j, bb):
-            # (k + j) < n is a SCALAR: lax.cond SKIPS the whole (TILE, 128)
-            # cluster test for out-of-range slots instead of paying it and
-            # select-discarding — mean survivors/tile is ~2.4 while
-            # EXIT_CHECK quantizes the chunk to 4, so the guarded slots
-            # were ~40% wasted VPU work on coherent bounces
-            return lax.cond(
-                (k + j) < n,
-                lambda b: test_cluster(k + j, *b),
-                lambda b: b,
-                bb,
-            )
-
-        best_t, best_i = lax.fori_loop(0, EXIT_CHECK, one, (best_t, best_i))
-        return k + EXIT_CHECK, best_t, best_i
-
-    def chunk_cond(state):
-        k, best_t, _ = state
-        # next chunk can only help a ray whose resolution limit — the min of
-        # its current best hit and its last surviving cluster's exit — lies
-        # at or beyond the next cluster's conservative entry distance. The
-        # comparison MUST be inclusive (<=): a flat axis-aligned cluster has
-        # zero AABB thickness, so a ray's conservative entry equals its exit
-        # (`far`); a strict < would exit the walk before ever testing the
-        # cluster and silently drop its geometry (round-3 confirmed bug;
-        # regression: tests/test_pallas.py::test_flat_clustered_rect_*).
-        limit = jnp.minimum(jnp.min(best_t, axis=1, keepdims=True), far)
-        worst = jnp.max(limit)
-        return (k < n) & (entry_ref[r, jnp.minimum(k, n - 1)] <= worst)
-
-    init = (
-        jnp.int32(0),
-        jnp.broadcast_to(t_max, (TILE, CLUSTER_SIZE)),
-        jnp.full((TILE, CLUSTER_SIZE), -1, jnp.int32),
-    )
-    _, best_t, best_i = lax.while_loop(chunk_cond, chunk_body, init)
-    row_t = jnp.min(best_t, axis=1, keepdims=True)             # (TILE, 1)
-    row_i = jnp.min(
-        jnp.where(best_t <= row_t, best_i, jnp.int32(2**31 - 1)),
-        axis=1,
-        keepdims=True,
-    )
-    hit = row_t < t_max
-    t_out[pl.ds(r, 1), :] = row_t.T
-    i_out[pl.ds(r, 1), :] = jnp.where(hit, row_i, -1).T
-
-
-def _anyhit_kernel(list_ref, count_ref, entry_ref, ox, oy, oz, dx, dy, dz,
-                   tm, fr, tri_ref, occ_out, *, t_min):
-    """Shadow-ray occlusion: exits as soon as every live lane is blocked.
-    Same layout as `_closest_kernel`; occ_out: (8, TILE) i32 (1 = occluded),
-    one row per tile. No best-hit bookkeeping — any valid hit in
-    (t_min, t_max) occludes."""
-    r = pl.program_id(0) % GROUP
-    rc, t_max, far = _ray_rows((ox, oy, oz, dx, dy, dz, tm, fr), r)
-    n = count_ref[r, 0]
-
-    # `blocked` is carried as a per-lane i32 accumulator (Mosaic cannot
-    # select between i1 vectors); the cross-lane any-reduce is deferred to
-    # the exit check and the epilogue, so per-cluster cost is one select.
-    def test_cluster(k, blocked):
-        c = list_ref[r, k]
-        t, valid = _mt_terms(rc, tri_ref, c)
-        hit = valid & (t > t_min) & (t < t_max)
-        return jnp.where(hit, jnp.int32(1), blocked)
-
-    def chunk_body(state):
-        k, blocked = state
-
-        def one(j, b):
-            # scalar-guarded skip (see _closest_kernel.chunk_body)
-            return lax.cond(
-                (k + j) < n, lambda bb: test_cluster(k + j, bb),
-                lambda bb: bb, b,
-            )
-
-        blocked = lax.fori_loop(0, EXIT_CHECK_ANY, one, blocked)
-        return k + EXIT_CHECK_ANY, blocked
-
-    def chunk_cond(state):
-        k, blocked = state
-        # a ray is resolved if any lane blocked it, it is dead, or the walk
-        # has passed its last surviving cluster's exit distance
-        row = jnp.max(blocked, axis=1, keepdims=True)
-        next_entry = entry_ref[r, jnp.minimum(k, n - 1)]
-        resolved = (row > 0) | (t_max <= t_min) | (far < next_entry)
-        return (k < n) & jnp.logical_not(jnp.all(resolved))
-
-    init = (jnp.int32(0), jnp.zeros((TILE, CLUSTER_SIZE), jnp.int32))
-    _, blocked = lax.while_loop(chunk_cond, chunk_body, init)
-    occ_out[pl.ds(r, 1), :] = jnp.max(blocked, axis=1, keepdims=True).T
-
-
-# ---------------------------------------------------------------------------
-# Fused in-kernel cull (round 5): slab test + front-to-back ordering INSIDE
-# the kernel
-# ---------------------------------------------------------------------------
-#
-# The XLA-side `_cull` materializes (B, C) slab/entry temps in HBM (~128 MB
-# apiece at B=512k, C=64) plus a (tiles, C) bitonic argsort and SMEM list
-# plumbing — measured ~1/3 of each query's cost and pure memory traffic.
-# The fused kernels compute the same cull per 128-ray tile entirely in
-# VMEM/registers:
-#
-#   1. slab-test the tile's rays against all cluster AABBs ((TILE, 128)
-#      vector ops; the AABB table is a single (8, 128) component-major
-#      block),
-#   2. reduce to the tile-min entry distance per cluster and the per-ray
-#      `far` resolution bound,
-#   3. bitonic-sort the (1, 128) entry row front-to-back using lane
-#      rotations (static slice + concat) — no gathers, and
-#   4. walk the sorted list exactly like the list-based kernels, extracting
-#      the head cluster id from lane 0 and rotating left per step.
-#
-# The AABB lane count is fixed at 128: the single-level path is only used
-# for C <= SUPER_MIN_C = 128, and the two-level path's supercluster count
-# S = ceil(C/16) <= ceil(MAX_VMEM_TRIS/128/16) = 98 <= 128. Padding lanes
-# carry live = 0 and entry = BIG.
-
-CP = 128  # fixed cull lane count (clusters or superclusters)
-
-
-def _lane_roll(x, shift: int):
-    """Rotate lanes left by `shift` (static) via two static lane slices —
-    Mosaic-safe (no gather)."""
-    if shift % x.shape[1] == 0:
-        return x
-    s = shift % x.shape[1]
-    return jnp.concatenate([x[:, s:], x[:, :s]], axis=1)
-
-
-def _lane_bitonic_sort(key, val):
-    """Ascending bitonic sort of an (8, CP) f32 key block with an i32
-    payload, lanes only (all 8 sublanes carry identical rows — Mosaic
-    handles (8, 128)-shaped masks natively but rejects (1, 128) i1
-    vectors). Partner exchange `lane ^ j` is realized as two lane rotations
-    + select (the wrapped values land on lanes that discard them). Ties
-    broken by payload so the order is deterministic — the same network as
-    `_bitonic_argsort_rows`, in-register."""
-    lane = lax.broadcasted_iota(jnp.int32, key.shape, 1)
-    n = key.shape[1]
-    k = 2
-    while k <= n:
-        j = k // 2
-        while j >= 1:
-            kl, kr = _lane_roll(key, j), _lane_roll(key, n - j)
-            vl, vr = _lane_roll(val, j), _lane_roll(val, n - j)
-            is_lo = (lane & j) == 0
-            pk = jnp.where(is_lo, kl, kr)
-            pv = jnp.where(is_lo, vl, vr)
-            # want = take_min ? less : !less with take_min = (bit_k == bit_j)
-            # of the lane id — computed in i32 (less ^ bit_k ^ bit_j):
-            # Mosaic cannot select between i1 vectors ("unsupported target
-            # bitwidth for truncation"), while mask-select over i32 and
-            # XORs of i32 lower fine.
-            aj = jnp.where(is_lo, 0, 1)
-            ak = jnp.where((lane & k) == 0, 0, 1)
-            less = jnp.where(
-                (pk < key) | ((pk == key) & (pv < val)), 1, 0
-            )
-            want = (less ^ ak ^ aj) == 1
-            key = jnp.where(want, pk, key)
-            val = jnp.where(want, pv, val)
-            j //= 2
-        k *= 2
-    return key, val
-
-
-def _tile_cull(aabb_ref, rc, t_max):
-    """In-kernel cull for one ray tile. aabb_ref: (8, CP) component-major
-    AABBs [minx miny minz maxx maxy maxz live pad]; rc: six (TILE, 1) ray
-    columns; t_max: (TILE, 1). Returns (entry_sorted (1, CP) f32 ascending,
-    ids_sorted (1, CP) i32, far (TILE, 1)) — the same contract as the XLA
-    `_cull` + `_bitonic_argsort_rows`, computed without touching HBM."""
-    ox, oy, oz, dx, dy, dz = rc
-    tn = jnp.full((ox.shape[0], CP), -BIG, jnp.float32)
-    tf = jnp.full((ox.shape[0], CP), BIG, jnp.float32)
-    for a, (oa, da) in enumerate(((ox, dx), (oy, dy), (oz, dz))):
-        safe = jnp.where(jnp.abs(da) > 1e-12, da,
-                         jnp.where(da >= 0, 1e-12, -1e-12))
-        r0 = pl.reciprocal(safe, approx=True)
-        inv = r0 * (2.0 - safe * r0)
-        t0 = (aabb_ref[a:a + 1, :] - oa) * inv
-        t1 = (aabb_ref[3 + a:4 + a, :] - oa) * inv
-        tn = jnp.maximum(tn, jnp.minimum(t0, t1))
-        tf = jnp.minimum(tf, jnp.maximum(t0, t1))
-    B = ox.shape[0]
-    live = jnp.broadcast_to(aabb_ref[6:7, :], (B, CP)) > 0.5
-    hitm = live & (tn <= tf) & (tf > 0.0) & (tn < t_max)
-    entry = jnp.where(hitm, jnp.maximum(tn, 0.0), BIG)
-    far = jnp.max(jnp.where(hitm, tf, -BIG), axis=1, keepdims=True)
-    far = jnp.minimum(far, t_max)
-    tile_entry = jnp.min(entry, axis=0, keepdims=True)        # (1, CP)
-    # sort at (8, CP): Mosaic rejects (1, 128)-shaped i1 masks
-    key8 = jnp.broadcast_to(tile_entry, (8, CP))
-    ids8 = lax.broadcasted_iota(jnp.int32, (8, CP), 1)
-    entry_s, ids_s = _lane_bitonic_sort(key8, ids8)
-    return entry_s[0:1, :], ids_s[0:1, :], far
-
-
-def _head(vec):
-    """Scalar at lane 0 of a (1, CP) row."""
-    return vec[0, 0]
-
-
-def _fused_closest_kernel(aabb_ref, ray_ref, tri_ref, t_out, i_out, *, t_min):
-    """`_closest_kernel` with the cull fused in (see block comment above).
-    No SMEM lists, no GROUP blocking — each grid step is self-contained."""
-    rc = tuple(ray_ref[:, i:i + 1] for i in range(6))
-    t_max = ray_ref[:, 6:7]
-    entry_s, ids_s, far = _tile_cull(aabb_ref, rc, t_max)
-    lanes = lax.broadcasted_iota(jnp.int32, (TILE, CLUSTER_SIZE), 1)
-
-    def test_cluster(c, best_t, best_i):
-        t, valid = _mt_terms(rc, tri_ref, c)
-        valid = valid & (t > t_min) & (t < best_t)
-        new_t = jnp.where(valid, t, best_t)
-        new_i = jnp.where(valid, lanes + c * CLUSTER_SIZE, best_i)
-        return new_t, new_i
-
-    def chunk_body(state):
-        k, kv, iv, best_t, best_i = state
-
-        def one(j, st):
-            kv, iv, bt, bi = st
-            ok = (_head(kv) < BIG) & (k + j < CP)  # exhausted / wrapped
-            nt, ni = test_cluster(_head(iv), bt, bi)
-            bt = jnp.where(ok, nt, bt)
-            bi = jnp.where(ok, ni, bi)
-            return (_lane_roll(kv, 1), _lane_roll(iv, 1), bt, bi)
-
-        kv, iv, best_t, best_i = lax.fori_loop(
-            0, EXIT_CHECK, one, (kv, iv, best_t, best_i)
+    def visit_cluster(c, best):
+        best_t, best_i = best
+        t, valid = _mt_test(rays, tri_ref, c)
+        valid = (valid & (t > t_min) & (t < t_max[:, None])
+                 & (t <= best_t[:, None]))
+        tt = jnp.where(valid, t, BIG)
+        ct = jnp.min(tt, axis=1)
+        ci = jnp.min(
+            jnp.where(valid & (tt <= ct[:, None]), lanes + c * CLUSTER_SIZE,
+                      _IMAX),
+            axis=1,
         )
-        return k + EXIT_CHECK, kv, iv, best_t, best_i
+        better = (ct < best_t) | ((ct == best_t) & (ci < best_i))
+        return jnp.where(better, ct, best_t), jnp.where(better, ci, best_i)
 
-    def chunk_cond(state):
-        k, kv, _, best_t, _ = state
-        # INCLUSIVE compare (<=): flat clusters have entry == exit == far
-        # (round-3 lesson; tests/test_pallas.py::test_flat_clustered_rect_*)
-        limit = jnp.minimum(jnp.min(best_t, axis=1, keepdims=True), far)
-        worst = jnp.max(limit)
-        head = _head(kv)
-        return (k < CP) & (head < BIG) & (head <= worst)
-
-    init = (
-        jnp.int32(0),
-        entry_s,
-        ids_s,
-        jnp.broadcast_to(t_max, (TILE, CLUSTER_SIZE)),
-        jnp.full((TILE, CLUSTER_SIZE), -1, jnp.int32),
-    )
-    _, _, _, best_t, best_i = lax.while_loop(chunk_cond, chunk_body, init)
-    row_t = jnp.min(best_t, axis=1, keepdims=True)
-    row_i = jnp.min(
-        jnp.where(best_t <= row_t, best_i, jnp.int32(2**31 - 1)),
-        axis=1,
-        keepdims=True,
-    )
-    hit = row_t < t_max
-    t_out[:] = row_t
-    i_out[:] = jnp.where(hit, row_i, -1)
-
-
-def _fused_anyhit_kernel(aabb_ref, ray_ref, tri_ref, occ_out, *, t_min):
-    """`_anyhit_kernel` with the cull fused in."""
-    rc = tuple(ray_ref[:, i:i + 1] for i in range(6))
-    t_max = ray_ref[:, 6:7]
-    entry_s, ids_s, far = _tile_cull(aabb_ref, rc, t_max)
-
-    def test_cluster(c, blocked):
-        t, valid = _mt_terms(rc, tri_ref, c)
-        hit = valid & (t > t_min) & (t < t_max)
-        return jnp.where(hit, jnp.int32(1), blocked)
-
-    def chunk_body(state):
-        k, kv, iv, blocked = state
-
-        def one(j, st):
-            kv, iv, b = st
-            ok = (_head(kv) < BIG) & (k + j < CP)
-            nb = test_cluster(_head(iv), b)
-            b = jnp.where(ok, nb, b)
-            return (_lane_roll(kv, 1), _lane_roll(iv, 1), b)
-
-        kv, iv, blocked = lax.fori_loop(0, EXIT_CHECK_ANY, one,
-                                        (kv, iv, blocked))
-        return k + EXIT_CHECK_ANY, kv, iv, blocked
-
-    def chunk_cond(state):
-        k, kv, _, blocked = state
-        row = jnp.max(blocked, axis=1, keepdims=True)
-        head = _head(kv)
-        resolved = (row > 0) | (t_max <= t_min) | (far < head)
-        return (k < CP) & (head < BIG) & jnp.logical_not(jnp.all(resolved))
-
-    init = (
-        jnp.int32(0),
-        entry_s,
-        ids_s,
-        jnp.zeros((TILE, CLUSTER_SIZE), jnp.int32),
-    )
-    _, _, _, blocked = lax.while_loop(chunk_cond, chunk_body, init)
-    occ_out[:] = jnp.max(blocked, axis=1, keepdims=True)
-
-
-def _fused_closest_super_kernel(aabb_ref, ray_ref, tri_ref, bounds_ref,
-                                t_out, i_out, *, t_min):
-    """`_closest_super_kernel` with the SUPERcluster cull fused in: the
-    (8, CP) table holds supercluster AABBs; each visited supercluster's 16
-    children are slab-refined in VMEM as before."""
-    rc = tuple(ray_ref[:, i:i + 1] for i in range(6))
-    t_max = ray_ref[:, 6:7]
-    entry_s, ids_s, far = _tile_cull(aabb_ref, rc, t_max)
-    lanes = lax.broadcasted_iota(jnp.int32, (TILE, CLUSTER_SIZE), 1)
-
-    def test_cluster(c, best_t, best_i):
-        t, valid = _mt_terms(rc, tri_ref, c)
-        valid = valid & (t > t_min) & (t < best_t)
-        new_t = jnp.where(valid, t, best_t)
-        new_i = jnp.where(valid, lanes + c * CLUSTER_SIZE, best_i)
-        return new_t, new_i
-
-    def super_body(state):
-        k, kv, iv, best_t, best_i = state
-        s = _head(iv)
-        row_best = jnp.min(best_t, axis=1, keepdims=True)
-        chit = _cluster_refine_hits(rc, bounds_ref, s, row_best)
-
-        bb = (best_t, best_i)
-        for j in range(SUPER):
-            bb = lax.cond(
-                jnp.any(chit[:, j]),
-                lambda b, jj=j: test_cluster(s * SUPER + jj, *b),
-                lambda b: b,
-                bb,
-            )
-        best_t, best_i = bb
-        return k + 1, _lane_roll(kv, 1), _lane_roll(iv, 1), best_t, best_i
-
-    def super_cond(state):
-        k, kv, _, best_t, _ = state
-        limit = jnp.minimum(jnp.min(best_t, axis=1, keepdims=True), far)
-        worst = jnp.max(limit)
-        head = _head(kv)
-        return (k < CP) & (head < BIG) & (head <= worst)
-
-    init = (
-        jnp.int32(0),
-        entry_s,
-        ids_s,
-        jnp.broadcast_to(t_max, (TILE, CLUSTER_SIZE)),
-        jnp.full((TILE, CLUSTER_SIZE), -1, jnp.int32),
-    )
-    _, _, _, best_t, best_i = lax.while_loop(super_cond, super_body, init)
-    row_t = jnp.min(best_t, axis=1, keepdims=True)
-    row_i = jnp.min(
-        jnp.where(best_t <= row_t, best_i, jnp.int32(2**31 - 1)),
-        axis=1,
-        keepdims=True,
-    )
-    hit = row_t < t_max
-    t_out[:] = row_t
-    i_out[:] = jnp.where(hit, row_i, -1)
-
-
-def _fused_anyhit_super_kernel(aabb_ref, ray_ref, tri_ref, bounds_ref,
-                               occ_out, *, t_min):
-    """`_anyhit_super_kernel` with the supercluster cull fused in."""
-    rc = tuple(ray_ref[:, i:i + 1] for i in range(6))
-    t_max = ray_ref[:, 6:7]
-    entry_s, ids_s, far = _tile_cull(aabb_ref, rc, t_max)
-
-    def test_cluster(c, blocked):
-        t, valid = _mt_terms(rc, tri_ref, c)
-        hit = valid & (t > t_min) & (t < t_max)
-        return jnp.where(hit, jnp.int32(1), blocked)
-
-    def super_body(state):
-        k, kv, iv, blocked = state
-        s = _head(iv)
-        open_ = jnp.max(blocked, axis=1, keepdims=True) == 0
-        limit = jnp.where(open_, t_max, 0.0)
-        chit = _cluster_refine_hits(rc, bounds_ref, s, limit)
-
-        for j in range(SUPER):
-            blocked = lax.cond(
-                jnp.any(chit[:, j]),
-                lambda bl, jj=j: test_cluster(s * SUPER + jj, bl),
-                lambda bl: bl,
-                blocked,
-            )
-        return k + 1, _lane_roll(kv, 1), _lane_roll(iv, 1), blocked
-
-    def super_cond(state):
-        k, kv, _, blocked = state
-        row = jnp.max(blocked, axis=1, keepdims=True)
-        head = _head(kv)
-        resolved = (row > 0) | (t_max <= t_min) | (far < head)
-        return (k < CP) & (head < BIG) & jnp.logical_not(jnp.all(resolved))
-
-    init = (
-        jnp.int32(0),
-        entry_s,
-        ids_s,
-        jnp.zeros((TILE, CLUSTER_SIZE), jnp.int32),
-    )
-    _, _, _, blocked = lax.while_loop(super_cond, super_body, init)
-    occ_out[:] = jnp.max(blocked, axis=1, keepdims=True)
-
-
-def pack_aabbs(cmin, cmax):
-    """(8, CP) component-major AABB table for `_tile_cull`: rows
-    [minx; miny; minz; maxx; maxy; maxz; live; pad] across CP lanes. Empty
-    (padded) clusters carry +-3e38 sentinels whose slabs overflow to
-    +-inf and PASS — the live row masks them (as in `_cull`)."""
-    C = cmin.shape[0]
-    assert C <= CP, (C, CP)
-    live = (cmin[:, 0] <= cmax[:, 0]).astype(jnp.float32)
-    rows = jnp.concatenate(
-        [cmin.T, cmax.T, live[None, :], jnp.zeros((1, C), jnp.float32)],
-        axis=0,
-    )  # (8, C)
-    if C < CP:
-        pad = jnp.zeros((8, CP - C), jnp.float32)
-        rows = jnp.concatenate([rows, pad], axis=1)  # live = 0 on padding
-    return rows
-
-
-def _fused_specs(n_tiles, with_bounds=False):
-    specs = [
-        pl.BlockSpec(memory_space=pltpu.VMEM),  # aabb (8, CP), whole
-        pl.BlockSpec((TILE, 8), lambda g: (g, 0), memory_space=pltpu.VMEM),
-        pl.BlockSpec(memory_space=pltpu.VMEM),  # tri_pack, whole
-    ]
-    if with_bounds:
-        specs.append(pl.BlockSpec(memory_space=pltpu.VMEM))
-    return dict(grid=(n_tiles,), in_specs=specs)
-
-
-@partial(jax.jit, static_argnames=("t_min", "interpret"))
-def _fused_closest_impl(tri_pack, aabbs, rays8, t_min, interpret=False):
-    B = rays8.shape[0]
-    T = tri_pack.shape[0] // ROWS * CLUSTER_SIZE
-    t, i = pl.pallas_call(
-        partial(_fused_closest_kernel, t_min=t_min),
-        out_shape=[
-            jax.ShapeDtypeStruct((B, 1), jnp.float32),
-            jax.ShapeDtypeStruct((B, 1), jnp.int32),
-        ],
-        out_specs=[
-            pl.BlockSpec((TILE, 1), lambda g: (g, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((TILE, 1), lambda g: (g, 0), memory_space=pltpu.VMEM),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=50 * B * T // 4, bytes_accessed=B * 64 + T * 64,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-        **_fused_specs(B // TILE),
-    )(aabbs, rays8, tri_pack)
-    return t[:, 0], i[:, 0]
-
-
-@partial(jax.jit, static_argnames=("t_min", "interpret"))
-def _fused_anyhit_impl(tri_pack, aabbs, rays8, t_min, interpret=False):
-    B = rays8.shape[0]
-    T = tri_pack.shape[0] // ROWS * CLUSTER_SIZE
-    (occ,) = pl.pallas_call(
-        partial(_fused_anyhit_kernel, t_min=t_min),
-        out_shape=[jax.ShapeDtypeStruct((B, 1), jnp.int32)],
-        out_specs=[
-            pl.BlockSpec((TILE, 1), lambda g: (g, 0), memory_space=pltpu.VMEM),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=45 * B * T // 8, bytes_accessed=B * 64 + T * 64,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-        **_fused_specs(B // TILE),
-    )(aabbs, rays8, tri_pack)
-    return occ[:, 0] > 0
-
-
-@partial(jax.jit, static_argnames=("t_min", "interpret"))
-def _fused_closest_super_impl(tri_pack, bounds_pack, aabbs, rays8, t_min,
-                              interpret=False):
-    B = rays8.shape[0]
-    T = tri_pack.shape[0] // ROWS * CLUSTER_SIZE
-    t, i = pl.pallas_call(
-        partial(_fused_closest_super_kernel, t_min=t_min),
-        out_shape=[
-            jax.ShapeDtypeStruct((B, 1), jnp.float32),
-            jax.ShapeDtypeStruct((B, 1), jnp.int32),
-        ],
-        out_specs=[
-            pl.BlockSpec((TILE, 1), lambda g: (g, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((TILE, 1), lambda g: (g, 0), memory_space=pltpu.VMEM),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=50 * B * T // 16, bytes_accessed=B * 64 + T * 64,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-        **_fused_specs(B // TILE, with_bounds=True),
-    )(aabbs, rays8, tri_pack, bounds_pack)
-    return t[:, 0], i[:, 0]
-
-
-@partial(jax.jit, static_argnames=("t_min", "interpret"))
-def _fused_anyhit_super_impl(tri_pack, bounds_pack, aabbs, rays8, t_min,
-                             interpret=False):
-    B = rays8.shape[0]
-    T = tri_pack.shape[0] // ROWS * CLUSTER_SIZE
-    (occ,) = pl.pallas_call(
-        partial(_fused_anyhit_super_kernel, t_min=t_min),
-        out_shape=[jax.ShapeDtypeStruct((B, 1), jnp.int32)],
-        out_specs=[
-            pl.BlockSpec((TILE, 1), lambda g: (g, 0), memory_space=pltpu.VMEM),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=45 * B * T // 32, bytes_accessed=B * 64 + T * 64,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-        **_fused_specs(B // TILE, with_bounds=True),
-    )(aabbs, rays8, tri_pack, bounds_pack)
-    return occ[:, 0] > 0
-
-
-# ---------------------------------------------------------------------------
-# Two-level (supercluster) kernels — large scenes (C > SUPER_MIN_C)
-# ---------------------------------------------------------------------------
-
-
-def _cluster_refine_hits(rc, bounds_ref, s, limit):
-    """(TILE, SUPER) bool: which child clusters of supercluster `s` some ray
-    could still hit within its per-ray `limit` (TILE, 1). One slab test of
-    the tile's rays against the 16 child AABBs held as component rows in
-    `bounds_ref` ((S*8, SUPER): [cminx; cminy; cminz; cmaxx; cmaxy; cmaxz;
-    live; pad] per supercluster). `rc`: six (TILE, 1) ray columns. The entry
-    comparison is INCLUSIVE — a flat child has entry == exit == limit (the
-    round-3 flat-cluster lesson)."""
-    bb = bounds_ref[pl.ds(pl.multiple_of(s * 8, 8), 8), :]  # (8, SUPER)
-    tn = jnp.full((TILE, SUPER), -BIG, jnp.float32)
-    tf = jnp.full((TILE, SUPER), BIG, jnp.float32)
-    for a in range(3):
-        oa = rc[a]
-        da = rc[3 + a]
-        safe = jnp.where(jnp.abs(da) > 1e-12, da,
-                         jnp.where(da >= 0, 1e-12, -1e-12))
-        r0 = pl.reciprocal(safe, approx=True)
-        inv = r0 * (2.0 - safe * r0)
-        t0 = (bb[a : a + 1, :] - oa) * inv
-        t1 = (bb[3 + a : 4 + a, :] - oa) * inv
-        tn = jnp.maximum(tn, jnp.minimum(t0, t1))
-        tf = jnp.minimum(tf, jnp.maximum(t0, t1))
-    live = bb[6:7, :] > 0.5
-    return live & (tn <= tf) & (tf > 0.0) & (tn <= limit)
-
-
-def _closest_super_kernel(
-    list_ref, count_ref, entry_ref, ox, oy, oz, dx, dy, dz, tm, fr,
-    tri_ref, bounds_ref, t_out, i_out, *, t_min
-):
-    """Supercluster walk: like `_closest_kernel`, but each list entry is a
-    SUPERcluster; its 16 child clusters are slab-refined in VMEM and only
-    children some ray can hit run the (128 x 128) triangle test (guarded by
-    `lax.cond` on the per-child any-ray reduce)."""
-    r = pl.program_id(0) % GROUP
-    rc, t_max, far = _ray_rows((ox, oy, oz, dx, dy, dz, tm, fr), r)
-    lanes = lax.broadcasted_iota(jnp.int32, (TILE, CLUSTER_SIZE), 1)
-    n = count_ref[r, 0]
-
-    def test_cluster(c, best_t, best_i):
-        t, valid = _mt_terms(rc, tri_ref, c)
-        valid = valid & (t > t_min) & (t < best_t)
-        new_t = jnp.where(valid, t, best_t)
-        new_i = jnp.where(valid, lanes + c * CLUSTER_SIZE, best_i)
-        return new_t, new_i
-
-    def super_body(state):
-        k, best_t, best_i = state
-        s = list_ref[r, k]
-        row_best = jnp.min(best_t, axis=1, keepdims=True)  # (TILE, 1)
-        chit = _cluster_refine_hits(rc, bounds_ref, s, row_best)
-
-        # static unroll over the 16 children (lane slices must be static in
-        # Mosaic); each child's triangle test is guarded by a scalar
-        # any-ray cond so culled children cost one reduce, not a 128x128
-        # intersection pass
-        bb = (best_t, best_i)
-        for j in range(SUPER):
-            bb = lax.cond(
-                jnp.any(chit[:, j]),
-                lambda b, jj=j: test_cluster(s * SUPER + jj, *b),
-                lambda b: b,
-                bb,
-            )
-        best_t, best_i = bb
-        return k + 1, best_t, best_i
-
-    def super_cond(state):
+    def cond(state):
         k, best_t, _ = state
-        limit = jnp.minimum(jnp.min(best_t, axis=1, keepdims=True), far)
-        worst = jnp.max(limit)
-        return (k < n) & (entry_ref[r, jnp.minimum(k, n - 1)] <= worst)
+        worst = jnp.max(jnp.minimum(best_t, far))
+        # INCLUSIVE compare: a flat axis-aligned cluster has zero AABB
+        # thickness, so a ray's conservative entry equals its exit (`far`);
+        # a strict < would end the walk before testing it and drop its
+        # geometry (regression: tests/test_pallas.py::test_flat_clustered_*)
+        return (k < n) & (entry_ref[jnp.minimum(k, n - 1)] <= worst)
 
-    init = (
-        jnp.int32(0),
-        jnp.broadcast_to(t_max, (TILE, CLUSTER_SIZE)),
-        jnp.full((TILE, CLUSTER_SIZE), -1, jnp.int32),
-    )
-    _, best_t, best_i = lax.while_loop(super_cond, super_body, init)
-    row_t = jnp.min(best_t, axis=1, keepdims=True)
-    row_i = jnp.min(
-        jnp.where(best_t <= row_t, best_i, jnp.int32(2**31 - 1)),
-        axis=1,
-        keepdims=True,
-    )
-    hit = row_t < t_max
-    t_out[pl.ds(r, 1), :] = row_t.T
-    i_out[pl.ds(r, 1), :] = jnp.where(hit, row_i, -1).T
+    def body(state):
+        k, best_t, best_i = state
+        best = _visit(list_ref[k], visit_cluster, (best_t, best_i),
+                      two_level, inv_rays, bounds_ref,
+                      lambda b: jnp.minimum(b[0], t_max))
+        return (k + 1,) + best
+
+    init = (jnp.int32(0), jnp.full((BLOCK,), BIG, jnp.float32),
+            jnp.full((BLOCK,), _IMAX, jnp.int32))
+    _, best_t, best_i = lax.while_loop(cond, body, init)
+    t_out[...] = best_t
+    i_out[...] = jnp.where(best_i < _IMAX, best_i, -1)
 
 
-def _anyhit_super_kernel(
-    list_ref, count_ref, entry_ref, ox, oy, oz, dx, dy, dz, tm, fr,
-    tri_ref, bounds_ref, occ_out, *, t_min
-):
-    """Supercluster any-hit: child refinement + per-child `lax.cond`; exits
-    as soon as every live lane is blocked."""
-    r = pl.program_id(0) % GROUP
-    rc, t_max, far = _ray_rows((ox, oy, oz, dx, dy, dz, tm, fr), r)
-    n = count_ref[r, 0]
+def _anyhit_kernel(list_ref, count_ref, entry_ref, *refs, t_min, two_level):
+    """Shadow-ray occlusion: exits as soon as every live ray is blocked.
+    Same layout as `_closest_kernel`; the output is (BLOCK,) i32
+    (1 = occluded). Any valid hit in (t_min, t_max) occludes."""
+    ray_refs, tri_ref = refs[:8], refs[8]
+    bounds_ref = refs[9] if two_level else None
+    occ_out = refs[-1]
+    rays, t_max, far = _load_rays(ray_refs)
+    inv_rays = _inv_dirs(ray_refs) if two_level else None
+    n = count_ref[0]
+    dead = t_max <= t_min
 
-    def test_cluster(c, blocked):
-        t, valid = _mt_terms(rc, tri_ref, c)
-        hit = valid & (t > t_min) & (t < t_max)
-        return jnp.where(hit, jnp.int32(1), blocked)
+    def visit_cluster(c, blocked):
+        t, valid = _mt_test(rays, tri_ref, c)
+        hit = valid & (t > t_min) & (t < t_max[:, None])
+        return jnp.maximum(blocked, jnp.max(hit.astype(jnp.int32), axis=1))
 
-    def super_body(state):
+    def cond(state):
         k, blocked = state
-        s = list_ref[r, k]
-        # rays already blocked need no more tests: zero their limit
-        open_ = jnp.max(blocked, axis=1, keepdims=True) == 0
-        limit = jnp.where(open_, t_max, 0.0)
-        chit = _cluster_refine_hits(rc, bounds_ref, s, limit)
+        next_entry = entry_ref[jnp.minimum(k, n - 1)]
+        resolved = (blocked > 0) | dead | (far < next_entry)
+        return (k < n) & (jnp.min(resolved.astype(jnp.int32)) == 0)
 
-        # static unroll (see _closest_super_kernel)
-        for j in range(SUPER):
-            blocked = lax.cond(
-                jnp.any(chit[:, j]),
-                lambda bl, jj=j: test_cluster(s * SUPER + jj, bl),
-                lambda bl: bl,
-                blocked,
-            )
-        return k + 1, blocked
-
-    def super_cond(state):
+    def body(state):
         k, blocked = state
-        row = jnp.max(blocked, axis=1, keepdims=True)
-        next_entry = entry_ref[r, jnp.minimum(k, n - 1)]
-        resolved = (row > 0) | (t_max <= t_min) | (far < next_entry)
-        return (k < n) & jnp.logical_not(jnp.all(resolved))
+        # rays already blocked need no more child tests: zero their limit
+        return k + 1, _visit(list_ref[k], visit_cluster, blocked, two_level,
+                             inv_rays, bounds_ref,
+                             lambda b: jnp.where(b > 0, 0.0, t_max))
 
-    init = (jnp.int32(0), jnp.zeros((TILE, CLUSTER_SIZE), jnp.int32))
-    _, blocked = lax.while_loop(super_cond, super_body, init)
-    occ_out[pl.ds(r, 1), :] = jnp.max(blocked, axis=1, keepdims=True).T
+    init = (jnp.int32(0), jnp.zeros((BLOCK,), jnp.int32))
+    _, blocked = lax.while_loop(cond, body, init)
+    occ_out[...] = blocked
 
 
 def pack_bounds(scene):
-    """(S*8, SUPER) component-major child-cluster AABBs for the two-level
-    kernels: rows s*8 .. s*8+7 hold [cminx; cminy; cminz; cmaxx; cmaxy;
-    cmaxz; live; pad] of supercluster s's 16 children across lanes. Empty
-    children carry +-3e38 sentinels (their slab overflows to +-inf and
-    passes — the live row masks them, as in `_cull`)."""
+    """(S*16, 8) child-cluster AABB rows for the two-level kernels:
+    [min xyz, max xyz, live, 0]. Empty children carry +-3e38 sentinels
+    (their slab overflows to +-inf and passes — the live column masks
+    them, as in `_cull`)."""
     C = scene.cluster_min.shape[0]
     S = scene.super_min.shape[0]
     pad = S * SUPER - C
@@ -1084,53 +345,30 @@ def pack_bounds(scene):
         cmin = jnp.concatenate([cmin, jnp.full((pad, 3), 3e38)], axis=0)
         cmax = jnp.concatenate([cmax, jnp.full((pad, 3), -3e38)], axis=0)
     live = (cmin[:, 0] <= cmax[:, 0]).astype(jnp.float32)
-    g_min = cmin.reshape(S, SUPER, 3).transpose(0, 2, 1)   # (S, 3, 16)
-    g_max = cmax.reshape(S, SUPER, 3).transpose(0, 2, 1)
-    g_live = live.reshape(S, 1, SUPER)
-    g_pad = jnp.zeros((S, 1, SUPER), jnp.float32)
-    return jnp.concatenate([g_min, g_max, g_live, g_pad], axis=1).reshape(
-        S * 8, SUPER
+    return jnp.concatenate(
+        [cmin, cmax, live[:, None], jnp.zeros((S * SUPER, 1), jnp.float32)],
+        axis=1,
     )
 
 
 def pack_tris(scene):
-    """(C*16, 128) component-major packed triangle records: rows c*16+k hold
-    component k of cluster c's 128 triangles across lanes. The 12 components
-    are the precomputed plane + barycentric-transform form consumed by
-    `_mt_terms`:
-      n = e1 x e2, dp = n.v0            (plane:   n.p = dp)
-      g1 = (e2 x n)/(n.n), c1 = g1.v0   (u(p) = g1.p - c1)
-      g2 = (n x e1)/(n.n), c2 = g2.v0   (v(p) = g2.p - c2)
-    Rows 12..15 are padding for sublane alignment. Mega triangles are zeroed
-    (n == 0 -> det == 0 -> never hit): the dense jnp test in `_mega_hits`
-    owns them, and the cluster AABBs exclude them."""
+    """(C*9, 128) component-major packed triangles: rows c*9+k hold
+    component k of [v0 xyz, e1 xyz, e2 xyz] of cluster c's 128 triangles
+    across columns (`_mt_test`). Mega triangles are zeroed (e1 = e2 = 0 ->
+    det == 0 -> never hit): the dense jnp test in `_mega_hits` owns them,
+    and the cluster AABBs exclude them."""
     T = scene.tri_v0.shape[0]
     C = T // CLUSTER_SIZE
-    v0, e1, e2 = scene.tri_v0, scene.tri_e1, scene.tri_e2
-    n = jnp.cross(e1, e2)
-    nn = jnp.maximum(jnp.sum(n * n, axis=1, keepdims=True), 1e-30)
-    g1 = jnp.cross(e2, n) / nn
-    g2 = jnp.cross(n, e1) / nn
-    comp = jnp.concatenate(
-        [
-            n,
-            jnp.sum(n * v0, axis=1, keepdims=True),
-            g1,
-            jnp.sum(g1 * v0, axis=1, keepdims=True),
-            g2,
-            jnp.sum(g2 * v0, axis=1, keepdims=True),
-        ],
-        axis=1,
-    )  # (T, 12)
+    comp = jnp.concatenate([scene.tri_v0, scene.tri_e1, scene.tri_e2],
+                           axis=1)  # (T, 9)
     safe_ids = jnp.where(scene.mega_ids >= 0, scene.mega_ids, T)
     comp = comp.at[safe_ids].set(0.0, mode="drop")
-    comp = comp.reshape(C, CLUSTER_SIZE, 12).transpose(0, 2, 1)  # (C, 12, 128)
-    pad = jnp.zeros((C, ROWS - 12, CLUSTER_SIZE), jnp.float32)
-    return jnp.concatenate([comp, pad], axis=1).reshape(C * ROWS, CLUSTER_SIZE)
+    comp = comp.reshape(C, CLUSTER_SIZE, ROWS).transpose(0, 2, 1)
+    return comp.reshape(C * ROWS, CLUSTER_SIZE)
 
 
 def _mega_hits(scene, o, d, t_min, t_max):
-    """Dense Moller-Trumbore over the (≤ MAX_MEGA) mega triangles; o, d are
+    """Dense Moller-Trumbore over the (<= MAX_MEGA) mega triangles; o, d are
     V3 of (B,) columns, temps are (B, M) component planes. Returns (t, idx):
     nearest mega hit within (t_min, t_max) per ray, with idx the *global*
     triangle index (-1 on miss / t = BIG)."""
@@ -1144,16 +382,12 @@ def _mega_hits(scene, o, d, t_min, t_max):
     ids = scene.mega_ids[:n]
     live = ids >= 0
     idc = jnp.clip(ids, 0, T - 1)
-    # (M,) per-component triangle columns broadcast against (B, 1) rays
     v0 = scene.tri_v0[idc]
     e1 = scene.tri_e1[idc]
     e2 = scene.tri_e2[idc]
 
-    def bcol(a):  # (B,) -> (B, 1)
-        return a[:, None]
-
-    ox, oy, oz = bcol(o.x), bcol(o.y), bcol(o.z)
-    dx, dy, dz = bcol(d.x), bcol(d.y), bcol(d.z)
+    ox, oy, oz = o.x[:, None], o.y[:, None], o.z[:, None]
+    dx, dy, dz = d.x[:, None], d.y[:, None], d.z[:, None]
     e1x, e1y, e1z = e1[None, :, 0], e1[None, :, 1], e1[None, :, 2]
     e2x, e2y, e2z = e2[None, :, 0], e2[None, :, 1], e2[None, :, 2]
     # pvec = d x e2
@@ -1183,288 +417,81 @@ def _mega_hits(scene, o, d, t_min, t_max):
         & (t < t_max[:, None])
     )
     t = jnp.where(ok, t, BIG)
-    # min + index-select reduces (take_along_axis(argmin) is a serial
-    # per-row gather on TPU, ~20x slower)
     best = jnp.min(t, axis=1)
     gid = jnp.broadcast_to(idc[None, :], t.shape)
     idx = jnp.min(
-        jnp.where(t <= best[:, None], gid, jnp.int32(2**31 - 1)), axis=1
+        jnp.where(t <= best[:, None], gid, jnp.int32(_IMAX)), axis=1
     )
     idx = jnp.where(best < BIG, idx, -1)
     return best, idx
 
 
-def _pack_rays(o, d, t_max, far):
-    """8 component-major (n_tiles, TILE) ray arrays [ox oy oz dx dy dz tmax
-    far] — each a pure BITCAST of a flat (B,) column (same physical bytes:
-    (B,) T(1024) and (n_tiles, 128) T(8,128) are both row-major dense), so
-    no XLA op materializes a lane-padded ray record (see `_ray_rows`)."""
-    n_tiles = o.x.shape[0] // TILE
-    return tuple(
-        c.reshape(n_tiles, TILE)
-        for c in (o.x, o.y, o.z, d.x, d.y, d.z, t_max, far)
-    )
-
-
-def _ray_in_specs():
-    """Input specs for the 8 component-major ray arrays: (8, TILE) blocks
-    revisited for 8 consecutive grid steps (the index map changes every 8
-    tiles, so Pallas fetches each block once)."""
-    return [
-        pl.BlockSpec((8, TILE), lambda g: (g // 8, 0),
-                     memory_space=pltpu.VMEM)
-        for _ in range(8)
-    ]
-
-
-def _out_spec():
-    """Output spec matching the component-major layout: (8, TILE) blocks of
-    an (n_tiles, TILE) array; the kernel writes row `program_id % 8` and the
-    block flushes when the index changes (standard revisiting output)."""
-    return pl.BlockSpec((8, TILE), lambda g: (g // 8, 0),
-                        memory_space=pltpu.VMEM)
-
-
-def _search_specs(n_tiles, C):
-    """Common grid spec: SMEM blocks of GROUP=8 tile rows for (lists,
-    counts, entries) — SMEM block sublane counts must be multiples of 8, so
-    each block carries 8 tiles' lists and the kernel reads row
-    `program_id % 8` — 8 component-major ray arrays, and the whole packed
-    triangle array resident in VMEM. Blocked SMEM (vs. scalar prefetch)
-    keeps SMEM use at O(C) per step instead of O(tiles * C) total, which
-    overflows the 1 MiB SMEM for large wavefronts."""
-    return dict(
-        grid=(n_tiles,),
+def _walk(kernel, out_dtypes, tri_pack, bounds, lists, counts, entries,
+          ray_cols, interpret):
+    B = ray_cols[0].shape[0]
+    C = lists.shape[1]
+    ray_spec = pl.BlockSpec((BLOCK,), lambda g: (g,))
+    extra = () if bounds is None else (bounds,)
+    return pl.pallas_call(
+        kernel,
+        grid=(B // BLOCK,),
         in_specs=[
-            pl.BlockSpec((GROUP, C), lambda g: (g // GROUP, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((GROUP, 1), lambda g: (g // GROUP, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((GROUP, C), lambda g: (g // GROUP, 0),
-                         memory_space=pltpu.SMEM),
-            *_ray_in_specs(),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
+            pl.BlockSpec((None, C), lambda g: (g, 0)),
+            pl.BlockSpec((None, 1), lambda g: (g, 0)),
+            pl.BlockSpec((None, C), lambda g: (g, 0)),
+            *([ray_spec] * len(ray_cols)),
+            pl.BlockSpec(tri_pack.shape, lambda g: (0, 0)),
+            *(pl.BlockSpec(b.shape, lambda g: (0, 0)) for b in extra),
         ],
-    )
-
-
-@partial(jax.jit, static_argnames=("t_min", "interpret"))
-def _closest_impl(tri_pack, lists, counts, entries, ray_cols, t_min,
-                  interpret=False):
-    n_tiles, _ = ray_cols[0].shape
-    B = n_tiles * TILE
-    specs = _search_specs(n_tiles, lists.shape[1])
-    T = tri_pack.shape[0] // ROWS * CLUSTER_SIZE
-    t, i = pl.pallas_call(
-        partial(_closest_kernel, t_min=t_min),
-        out_shape=[
-            jax.ShapeDtypeStruct((n_tiles, TILE), jnp.float32),
-            jax.ShapeDtypeStruct((n_tiles, TILE), jnp.int32),
-        ],
-        out_specs=[_out_spec(), _out_spec()],
-        cost_estimate=pl.CostEstimate(
-            flops=50 * B * T // 4, bytes_accessed=B * 64 + T * 64, transcendentals=0
-        ),
+        out_specs=[ray_spec] * len(out_dtypes),
+        out_shape=[jax.ShapeDtypeStruct((B,), dt) for dt in out_dtypes],
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=NUM_WARPS,
+                                                 num_stages=NUM_STAGES),
         interpret=interpret,
-        **specs,
-    )(lists, counts.reshape(-1, 1), entries, *ray_cols, tri_pack)
-    return t.reshape(B), i.reshape(B)
-
-
-@partial(jax.jit, static_argnames=("t_min", "interpret"))
-def _anyhit_impl(tri_pack, lists, counts, entries, ray_cols, t_min,
-                 interpret=False):
-    n_tiles, _ = ray_cols[0].shape
-    B = n_tiles * TILE
-    specs = _search_specs(n_tiles, lists.shape[1])
-    T = tri_pack.shape[0] // ROWS * CLUSTER_SIZE
-    (occ,) = pl.pallas_call(
-        partial(_anyhit_kernel, t_min=t_min),
-        out_shape=[jax.ShapeDtypeStruct((n_tiles, TILE), jnp.int32)],
-        out_specs=[_out_spec()],
-        cost_estimate=pl.CostEstimate(
-            flops=45 * B * T // 8, bytes_accessed=B * 64 + T * 64, transcendentals=0
-        ),
-        interpret=interpret,
-        **specs,
-    )(lists, counts.reshape(-1, 1), entries, *ray_cols, tri_pack)
-    return occ.reshape(B) > 0
-
-
-@partial(jax.jit, static_argnames=("t_min", "interpret"))
-def _closest_super_impl(tri_pack, bounds_pack, lists, counts, entries,
-                        ray_cols, t_min, interpret=False):
-    n_tiles, _ = ray_cols[0].shape
-    B = n_tiles * TILE
-    specs = _search_specs(n_tiles, lists.shape[1])
-    specs["in_specs"].append(pl.BlockSpec(memory_space=pltpu.VMEM))
-    T = tri_pack.shape[0] // ROWS * CLUSTER_SIZE
-    t, i = pl.pallas_call(
-        partial(_closest_super_kernel, t_min=t_min),
-        out_shape=[
-            jax.ShapeDtypeStruct((n_tiles, TILE), jnp.float32),
-            jax.ShapeDtypeStruct((n_tiles, TILE), jnp.int32),
-        ],
-        out_specs=[_out_spec(), _out_spec()],
-        cost_estimate=pl.CostEstimate(
-            flops=50 * B * T // 16, bytes_accessed=B * 64 + T * 64,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-        **specs,
-    )(lists, counts.reshape(-1, 1), entries, *ray_cols, tri_pack, bounds_pack)
-    return t.reshape(B), i.reshape(B)
-
-
-@partial(jax.jit, static_argnames=("t_min", "interpret"))
-def _anyhit_super_impl(tri_pack, bounds_pack, lists, counts, entries,
-                       ray_cols, t_min, interpret=False):
-    n_tiles, _ = ray_cols[0].shape
-    B = n_tiles * TILE
-    specs = _search_specs(n_tiles, lists.shape[1])
-    specs["in_specs"].append(pl.BlockSpec(memory_space=pltpu.VMEM))
-    T = tri_pack.shape[0] // ROWS * CLUSTER_SIZE
-    (occ,) = pl.pallas_call(
-        partial(_anyhit_super_kernel, t_min=t_min),
-        out_shape=[jax.ShapeDtypeStruct((n_tiles, TILE), jnp.int32)],
-        out_specs=[_out_spec()],
-        cost_estimate=pl.CostEstimate(
-            flops=45 * B * T // 32, bytes_accessed=B * 64 + T * 64,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-        **specs,
-    )(lists, counts.reshape(-1, 1), entries, *ray_cols, tri_pack, bounds_pack)
-    return occ.reshape(B) > 0
+    )(lists, counts, entries, *ray_cols, tri_pack, *extra)
 
 
 # The search is non-differentiable by design (detached closest-hit
 # selection); declare identically-zero tangents so AD never tries to
-# differentiate through the pallas_call (its jvp rule is unimplemented, and
-# stop_gradient alone does not stop jvp tracing through the jit boundary).
-@partial(jax.custom_jvp, nondiff_argnums=(5, 6))
-def _search(tri_pack, lists, counts, entries, rays8, t_min, interpret):
-    return _closest_impl(tri_pack, lists, counts, entries, rays8, t_min,
-                         interpret=interpret)
+# differentiate through the pallas_call.
+@partial(jax.custom_jvp, nondiff_argnums=(6, 7))
+def _search(tri_pack, bounds, lists, counts, entries, ray_cols, t_min,
+            interpret):
+    kernel = partial(_closest_kernel, t_min=t_min,
+                     two_level=bounds is not None)
+    t, i = _walk(kernel, (jnp.float32, jnp.int32),
+                 tri_pack, bounds, lists, counts, entries, ray_cols,
+                 interpret)
+    return t, i
 
 
 @_search.defjvp
 def _search_jvp(t_min, interpret, primals, tangents):
     t, i = _search(*primals, t_min, interpret)
-    import numpy as _np
-
-    return (t, i), (
-        jnp.zeros_like(t),
-        _np.zeros(i.shape, jax.dtypes.float0),
-    )
+    return (t, i), (jnp.zeros_like(t), np.zeros(i.shape, jax.dtypes.float0))
 
 
-@partial(jax.custom_jvp, nondiff_argnums=(5, 6))
-def _search_any(tri_pack, lists, counts, entries, rays8, t_min, interpret):
-    return _anyhit_impl(tri_pack, lists, counts, entries, rays8, t_min,
-                        interpret=interpret)
+@partial(jax.custom_jvp, nondiff_argnums=(6, 7))
+def _search_any(tri_pack, bounds, lists, counts, entries, ray_cols, t_min,
+                interpret):
+    kernel = partial(_anyhit_kernel, t_min=t_min,
+                     two_level=bounds is not None)
+    (occ,) = _walk(kernel, (jnp.int32,), tri_pack,
+                   bounds, lists, counts, entries, ray_cols, interpret)
+    return occ > 0
 
 
 @_search_any.defjvp
 def _search_any_jvp(t_min, interpret, primals, tangents):
     occ = _search_any(*primals, t_min, interpret)
-    import numpy as _np
-
-    return occ, _np.zeros(occ.shape, jax.dtypes.float0)
-
-
-@partial(jax.custom_jvp, nondiff_argnums=(6, 7))
-def _search_super(tri_pack, bounds_pack, lists, counts, entries, rays8,
-                  t_min, interpret):
-    return _closest_super_impl(tri_pack, bounds_pack, lists, counts, entries,
-                               rays8, t_min, interpret=interpret)
-
-
-@_search_super.defjvp
-def _search_super_jvp(t_min, interpret, primals, tangents):
-    t, i = _search_super(*primals, t_min, interpret)
-    import numpy as _np
-
-    return (t, i), (jnp.zeros_like(t), _np.zeros(i.shape, jax.dtypes.float0))
-
-
-@partial(jax.custom_jvp, nondiff_argnums=(6, 7))
-def _search_any_super(tri_pack, bounds_pack, lists, counts, entries, rays8,
-                      t_min, interpret):
-    return _anyhit_super_impl(tri_pack, bounds_pack, lists, counts, entries,
-                              rays8, t_min, interpret=interpret)
-
-
-@_search_any_super.defjvp
-def _search_any_super_jvp(t_min, interpret, primals, tangents):
-    occ = _search_any_super(*primals, t_min, interpret)
-    import numpy as _np
-
-    return occ, _np.zeros(occ.shape, jax.dtypes.float0)
-
-
-# fused-cull variants (same zero-tangent contract)
-@partial(jax.custom_jvp, nondiff_argnums=(3, 4))
-def _search_fused(tri_pack, aabbs, rays8, t_min, interpret):
-    return _fused_closest_impl(tri_pack, aabbs, rays8, t_min,
-                               interpret=interpret)
-
-
-@_search_fused.defjvp
-def _search_fused_jvp(t_min, interpret, primals, tangents):
-    t, i = _search_fused(*primals, t_min, interpret)
-    import numpy as _np
-
-    return (t, i), (jnp.zeros_like(t), _np.zeros(i.shape, jax.dtypes.float0))
-
-
-@partial(jax.custom_jvp, nondiff_argnums=(3, 4))
-def _search_any_fused(tri_pack, aabbs, rays8, t_min, interpret):
-    return _fused_anyhit_impl(tri_pack, aabbs, rays8, t_min,
-                              interpret=interpret)
-
-
-@_search_any_fused.defjvp
-def _search_any_fused_jvp(t_min, interpret, primals, tangents):
-    occ = _search_any_fused(*primals, t_min, interpret)
-    import numpy as _np
-
-    return occ, _np.zeros(occ.shape, jax.dtypes.float0)
-
-
-@partial(jax.custom_jvp, nondiff_argnums=(4, 5))
-def _search_fused_super(tri_pack, bounds_pack, aabbs, rays8, t_min, interpret):
-    return _fused_closest_super_impl(tri_pack, bounds_pack, aabbs, rays8,
-                                     t_min, interpret=interpret)
-
-
-@_search_fused_super.defjvp
-def _search_fused_super_jvp(t_min, interpret, primals, tangents):
-    t, i = _search_fused_super(*primals, t_min, interpret)
-    import numpy as _np
-
-    return (t, i), (jnp.zeros_like(t), _np.zeros(i.shape, jax.dtypes.float0))
-
-
-@partial(jax.custom_jvp, nondiff_argnums=(4, 5))
-def _search_any_fused_super(tri_pack, bounds_pack, aabbs, rays8, t_min,
-                            interpret):
-    return _fused_anyhit_super_impl(tri_pack, bounds_pack, aabbs, rays8,
-                                    t_min, interpret=interpret)
-
-
-@_search_any_fused_super.defjvp
-def _search_any_fused_super_jvp(t_min, interpret, primals, tangents):
-    occ = _search_any_fused_super(*primals, t_min, interpret)
-    import numpy as _np
-
-    return occ, _np.zeros(occ.shape, jax.dtypes.float0)
+    return occ, np.zeros(occ.shape, jax.dtypes.float0)
 
 
 def _static_t_min(t_min) -> float:
     """The kernels bake t_min at trace time, so it must be a static Python
     scalar (PathTracerConfig.t_min always is). Raise loudly for tracers
-    instead of silently substituting a constant (round-4 VERDICT item 3)."""
+    instead of silently substituting a constant."""
     try:
         return float(t_min)
     except TypeError as e:
@@ -1475,27 +502,18 @@ def _static_t_min(t_min) -> float:
         ) from e
 
 
-def _prep(scene, o, d, t_min, t_max, interpret, anyhit=False, fused=False):
-    """Shared preamble: detach, pad to a TILE multiple, dense mega-triangle
-    test (capping t_max so the cull prunes everything behind the first mega
-    hit), cull, pack. o, d: V3 of (B,) columns. Returns the mega results
-    for the caller to merge.
-
-    `fused=True` skips the XLA cull entirely (the kernel culls in VMEM —
-    see the fused-kernel block comment): the `lists/counts/entries` slots
-    hold the packed (8, CP) AABB table instead, `far` in the ray record is
-    unused (computed in-kernel), and the batch only needs TILE alignment
-    (no SMEM GROUP blocking)."""
+def _prep(scene, o, d, t_min, t_max, anyhit=False):
+    """Shared preamble: detach, pad to a BLOCK multiple, dense
+    mega-triangle test (capping t_max so the cull prunes everything behind
+    the first mega hit), cull. o, d: V3 of (B,) columns. Returns the mega
+    results for the caller to merge."""
     from mafrixraytracing_tpu.core.v3 import V3
 
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     o = jax.tree_util.tree_map(lax.stop_gradient, o)
     d = jax.tree_util.tree_map(lax.stop_gradient, d)
     scene = jax.tree_util.tree_map(lax.stop_gradient, scene)
     B = o.x.shape[0]
-    align = TILE if fused else TILE * GROUP  # SMEM blocks cover GROUP tiles
-    Bp = ((B + align - 1) // align) * align
+    Bp = -(-B // BLOCK) * BLOCK
     t_max_arr = jnp.broadcast_to(jnp.asarray(t_max, jnp.float32), (B,))
     if Bp != B:
         pad = Bp - B
@@ -1514,39 +532,23 @@ def _prep(scene, o, d, t_min, t_max, interpret, anyhit=False, fused=False):
         t_max_k = jnp.where(mega_idx >= 0, 0.0, t_max_p)
     else:
         t_max_k = jnp.minimum(t_max_p, mega_t)
-
     # two-level path for large scenes: cull at SUPERcluster granularity
-    # (16x smaller dense pass; the kernel refines children in VMEM)
-    use_super = scene.cluster_min.shape[0] > SUPER_MIN_C
-    bounds = pack_bounds(scene) if use_super else None
-    if fused:
-        if use_super:
-            aabbs = pack_aabbs(scene.super_min, scene.super_max)
-        else:
-            aabbs = pack_aabbs(scene.cluster_min, scene.cluster_max)
-        rays8 = jnp.stack(
-            [o.x, o.y, o.z, d.x, d.y, d.z, t_max_k,
-             jnp.zeros_like(t_max_k)], axis=1,
-        )
-        search_args = (aabbs,)
+    # (16x smaller dense pass; the kernel refines children)
+    if scene.cluster_min.shape[0] > SUPER_MIN_C:
+        bounds = pack_bounds(scene)
+        lists, counts, entries, far = _cull(o, d, t_max_k, scene.super_min,
+                                            scene.super_max)
     else:
-        cull = _cull_frustum if FRUSTUM_CULL else _cull
-        if use_super:
-            lists, counts, entries, far = cull(
-                o, d, t_max_k, scene.super_min, scene.super_max
-            )
-        else:
-            lists, counts, entries, far = cull(
-                o, d, t_max_k, scene.cluster_min, scene.cluster_max
-            )
-        rays8 = _pack_rays(o, d, t_max_k, far)
-        search_args = (lists, counts, entries)
-    return (scene, pack_tris(scene), bounds, search_args, rays8, B,
-            t_max_arr, mega_t, mega_idx, interpret)
+        bounds = None
+        lists, counts, entries, far = _cull(o, d, t_max_k, scene.cluster_min,
+                                            scene.cluster_max)
+    ray_cols = (o.x, o.y, o.z, d.x, d.y, d.z, t_max_k, far)
+    return (scene, pack_tris(scene), bounds, (lists, counts, entries),
+            ray_cols, B, t_max_arr, mega_t, mega_idx)
 
 
 def find_closest_soa(scene, o, d, t_min, t_max, interpret=None, times=None):
-    """SoA Pallas-accelerated closest-hit search (clustered triangles via
+    """SoA kernel-accelerated closest-hit search (clustered triangles via
     the kernel; mega triangles and spheres merged densely). o, d: V3 of
     (B,) columns. `times` (B,) enables sphere motion blur (the clustered
     triangles are static; only the dense sphere merge is time-shifted).
@@ -1554,20 +556,10 @@ def find_closest_soa(scene, o, d, t_min, t_max, interpret=None, times=None):
     from mafrixraytracing_tpu.geometry.intersect import _closest_sphere_soa
 
     t_min = _static_t_min(t_min)
-    (scene, tri_pack, bounds, sargs, rays8, B, t_max_arr,
-     mega_t, mega_idx, interpret) = _prep(scene, o, d, t_min, t_max,
-                                          interpret, fused=FUSED_CULL)
-    if FUSED_CULL:
-        if bounds is not None:
-            tt, ti = _search_fused_super(tri_pack, bounds, *sargs, rays8,
-                                         t_min, interpret)
-        else:
-            tt, ti = _search_fused(tri_pack, *sargs, rays8, t_min, interpret)
-    elif bounds is not None:
-        tt, ti = _search_super(tri_pack, bounds, *sargs, rays8, t_min,
-                               interpret)
-    else:
-        tt, ti = _search(tri_pack, *sargs, rays8, t_min, interpret)
+    interpret = resolve_interpret(interpret)
+    (scene, tri_pack, bounds, sargs, ray_cols, B, t_max_arr,
+     mega_t, mega_idx) = _prep(scene, o, d, t_min, t_max)
+    tt, ti = _search(tri_pack, bounds, *sargs, ray_cols, t_min, interpret)
     tt, ti = tt[:B], ti[:B]
     mega_t, mega_idx = mega_t[:B], mega_idx[:B]
 
@@ -1578,8 +570,7 @@ def find_closest_soa(scene, o, d, t_min, t_max, interpret=None, times=None):
     tt = jnp.where(use_mega, mega_t, tt)
     ti = jnp.where(use_mega, mega_idx, ti)
 
-    # merge spheres (sphere tables are small; statically skipped when the
-    # scene has none — the (B, Sp) temps lane-pad Sp -> 128 otherwise)
+    # merge spheres (statically skipped when the scene has none)
     if scene.num_live_spheres > 0:
         ob = jax.tree_util.tree_map(lambda c: c[:B], o)
         db = jax.tree_util.tree_map(lambda c: c[:B], d)
@@ -1608,25 +599,14 @@ def occluded_soa(scene, o, d, t_min, t_max, interpret=None, times=None):
     """SoA any-hit query (shadow rays): dedicated early-exit kernel for
     clustered triangles; mega triangles + spheres merged densely. `t_max`
     may be per-ray. Rays already blocked by a mega hit skip the kernel
-    entirely (their capped t_max empties the cluster list)."""
+    entirely (their zeroed t_max empties the cluster list)."""
     from mafrixraytracing_tpu.geometry.intersect import _closest_sphere_soa
 
     t_min = _static_t_min(t_min)
-    (scene, tri_pack, bounds, sargs, rays8, B, t_max_arr,
-     mega_t, mega_idx, interpret) = _prep(
-        scene, o, d, t_min, t_max, interpret, anyhit=True, fused=FUSED_CULL
-    )
-    if FUSED_CULL:
-        if bounds is not None:
-            occ = _search_any_fused_super(tri_pack, bounds, *sargs, rays8,
-                                          t_min, interpret)
-        else:
-            occ = _search_any_fused(tri_pack, *sargs, rays8, t_min, interpret)
-    elif bounds is not None:
-        occ = _search_any_super(tri_pack, bounds, *sargs, rays8, t_min,
-                                interpret)
-    else:
-        occ = _search_any(tri_pack, *sargs, rays8, t_min, interpret)
+    interpret = resolve_interpret(interpret)
+    (scene, tri_pack, bounds, sargs, ray_cols, B, t_max_arr,
+     mega_t, mega_idx) = _prep(scene, o, d, t_min, t_max, anyhit=True)
+    occ = _search_any(tri_pack, bounds, *sargs, ray_cols, t_min, interpret)
     occ = occ[:B] | (mega_idx[:B] >= 0)
     if scene.num_live_spheres > 0:
         ob = jax.tree_util.tree_map(lambda c: c[:B], o)

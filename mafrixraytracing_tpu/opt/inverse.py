@@ -6,7 +6,7 @@ north-star capability: pixel gradients flow to material albedo/emission,
 light radiance, and vertex positions (BASELINE.md targets). The training
 step is shard_map-parallel over the ray axis: every device renders its pixel
 shard of the loss, gradients for the replicated scene parameters are
-`psum`-reduced over ICI, and each device applies the identical optimizer
+`psum`-reduced across the mesh, and each device applies the identical optimizer
 update — the renderer's equivalent of data-parallel training.
 """
 from __future__ import annotations
@@ -28,7 +28,7 @@ from mafrixraytracing_tpu.parallel.render import _render_flat_pixels
 # Scene leaves that move geometry: optimizing any of these invalidates the
 # cluster AABBs the Pallas cull relies on, so `apply_params` must rebuild
 # them (a stale cull silently *loses hits* once vertices leave their
-# original cluster boxes — round-3 VERDICT weak #3).
+# original cluster boxes).
 GEOMETRY_PARAMS = ("tri_v0", "tri_e1", "tri_e2", "mesh_vertices")
 
 
@@ -125,13 +125,13 @@ def make_train_step(
     scalar next to the loss).
 
     `overlap_microbatches=M > 1` splits the spp budget into M gradient
-    microbatches and issues the ICI gradient all-reduce (`pmean`) per
+    microbatches and issues the gradient all-reduce (`pmean`) per
     microbatch, UNROLLED in one XLA program: microbatch m's all-reduce has
     no data dependence on microbatch m+1's forward/backward, so XLA's
     latency-hiding scheduler overlaps the collective with the remaining
     backward compute instead of serializing one big pmean after the whole
-    backward pass (round-4 VERDICT weak #4; the payoff grows with the
-    `mesh_vertices` (V, 3) fits where the payload is real). Estimator note:
+    backward pass (the payoff is largest for `mesh_vertices` fits, whose
+    (V, 3) gradient makes the all-reduce payload large). Estimator note:
     the loss becomes the mean of M relative-L2 losses of sub-images (spp/M
     samples each) rather than one loss of the full-spp image — same target,
     slightly higher-variance gradient; the M sub-sample sets partition the
@@ -161,7 +161,7 @@ def make_train_step(
                     params, scene, camera, ids, target_flat, key,
                     spp_chunk=sub, sample_offset=m * sub,
                 )
-                # per-microbatch ICI all-reduce, issued as soon as this
+                # per-microbatch all-reduce, issued as soon as this
                 # chunk's backward finishes
                 g_m = lax.pmean(g_m, RAY_AXIS)
                 l_m = lax.pmean(l_m, RAY_AXIS)
@@ -175,7 +175,7 @@ def make_train_step(
             loss, grads = jax.value_and_grad(loss_fn)(
                 params, scene, camera, ids, target_flat, key
             )
-            # data-parallel gradient all-reduce over the ray axis (ICI)
+            # data-parallel gradient all-reduce over the ray axis
             grads = lax.pmean(grads, RAY_AXIS)
             loss = lax.pmean(loss, RAY_AXIS)
         if smooth_geometry and "mesh_vertices" in grads:

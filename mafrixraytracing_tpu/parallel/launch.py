@@ -1,25 +1,22 @@
-"""Multi-host launch: extend the single-host mesh to a TPU pod slice.
+"""Multi-process launch: extend the single-host mesh across processes.
 
 The reference has no distributed runtime at all (SURVEY §2.15: its only
 parallelism is `Array.Parallel` threads). Here the same renderer code runs
-multi-host because everything is expressed over a `jax.sharding.Mesh`:
-initialize the distributed runtime once per process, then build the mesh
-over *all* devices — `shard_map` collectives (framebuffer psum, gradient
-pmean in `opt.inverse`) ride ICI within a slice and DCN across slices with
-no further code changes.
-
-Typical pod-slice launch (one process per host; the TPU runtime provides
-coordinator discovery so bare `initialize()` suffices on Cloud TPU):
+multi-process because everything is expressed over a `jax.sharding.Mesh`:
+initialize the distributed runtime once per process with an explicit
+coordinator, then build the mesh over *all* devices — the `shard_map`
+collectives (framebuffer psum, gradient pmean in `opt.inverse`) need no
+further code changes.
 
     python -c "
     from mafrixraytracing_tpu.parallel import launch
-    launch.init()                     # no-op on a single host
+    launch.init('localhost:12345', num_processes=2, process_id=0)
     mesh = launch.global_mesh()
     ...render_image_sharded(scene, camera, mesh, ...)"
 
-For explicit coordination (e.g. GPU clusters or manual setups), pass
-coordinator_address/num_processes/process_id or set the standard
-JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID env vars.
+The coordinator can also come from the standard JAX_COORDINATOR_ADDRESS /
+JAX_NUM_PROCESSES / JAX_PROCESS_ID environment variables; with none given,
+`init()` is a single-process no-op.
 """
 from __future__ import annotations
 
@@ -53,18 +50,13 @@ def init(coordinator_address: str | None = None,
     process_id = process_id if process_id is not None else (
         int(env_pid) if env_pid else None
     )
-    on_tpu_pod = jax.default_backend() == "tpu" and (
-        os.environ.get("TPU_WORKER_HOSTNAMES") or os.environ.get("MEGASCALE_COORDINATOR_ADDRESS")
-    )
-    if coordinator_address is None and not on_tpu_pod:
+    if coordinator_address is None:
         return False  # single-process
-    kwargs = {}
-    if coordinator_address is not None:
-        kwargs = dict(
-            coordinator_address=coordinator_address,
-            num_processes=num_processes,
-            process_id=process_id,
-        )
+    kwargs = dict(
+        coordinator_address=coordinator_address,
+        num_processes=num_processes,
+        process_id=process_id,
+    )
     jax.distributed.initialize(**kwargs)
     _initialized = True
     return True

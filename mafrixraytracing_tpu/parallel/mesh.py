@@ -1,12 +1,12 @@
 """Device-mesh helpers.
 
 The reference's only parallelism is shared-memory threads over pixels
-(`Array.Parallel.iter`, `Core/Integrator/Integrators.fs:164`). The TPU-native
+(`Array.Parallel.iter`, `Core/Integrator/Integrators.fs:164`). The
 replacement is a 1-D `jax.sharding.Mesh` over all addressable devices with
 the pixel-sample wavefront sharded along it ("ray parallelism" == data
-parallelism for rendering); scene arrays are replicated. Collectives ride
-ICI within a slice; `jax.distributed.initialize` extends the same code to
-multi-host (SURVEY §2.15).
+parallelism for rendering); scene arrays are replicated. XLA lowers the
+collectives to the devices' interconnect; `jax.distributed.initialize`
+extends the same code to multiple processes (`parallel.launch`).
 """
 from __future__ import annotations
 

@@ -8,7 +8,7 @@ triangle fill with z/uv/normal interpolation (`Pipeline.fs:40-65`) →
 per-pixel texture sample + `Sample_Li` lighting → z-buffered write
 (`Core/RenderTarget.fs:15-20`).
 
-TPU-native redesign: no scanlines (`DrawModelCar.fs:11-89`'s top/bottom
+Wavefront redesign: no scanlines (`DrawModelCar.fs:11-89`'s top/bottom
 split is serial per-row work) — coverage is dense edge-function evaluation
 of pixel tiles against triangle chunks, scanned with a running z-buffer, so
 the whole frame is a fixed-shape `lax.scan` the XLA fuser handles. Like the
@@ -44,7 +44,7 @@ def look_at(eye, target, up=(0.0, 1.0, 0.0)) -> jnp.ndarray:
     rot = jnp.stack([r, u, -f], axis=0)
     m = jnp.eye(4, dtype=jnp.float32)
     m = m.at[:3, :3].set(rot)
-    m = m.at[:3, 3].set(-rot @ eye)
+    m = m.at[:3, 3].set(-jnp.matmul(rot, eye, precision=lax.Precision.HIGHEST))
     return m
 
 
@@ -137,9 +137,12 @@ def rasterize(
     F = faces.shape[0]
 
     # --- vertex stage: local -> world -> clip -> NDC -> screen ---
+    # float32 products pinned to full precision: a GPU would otherwise run
+    # them in TF32 and move vertices by ~1e-3 relative, i.e. pixel edges
+    mm = partial(jnp.matmul, precision=lax.Precision.HIGHEST)
     vh = jnp.concatenate([vertices, jnp.ones((V, 1), jnp.float32)], axis=1)
-    world = vh @ model.T
-    clip = world @ view.T @ proj.T
+    world = mm(vh, model.T)
+    clip = mm(mm(world, view.T), proj.T)
     w = jnp.where(jnp.abs(clip[:, 3:4]) > 1e-8, clip[:, 3:4], 1e-8)
     ndc = clip[:, :3] / w
     sx = (ndc[:, 0] * 0.5 + 0.5) * width
@@ -147,7 +150,7 @@ def rasterize(
     sz = ndc[:, 2]
     inv_w = 1.0 / w[:, 0]
 
-    nrm_w = normals @ jnp.linalg.inv(model[:3, :3]).T  # normal matrix
+    nrm_w = mm(normals, jnp.linalg.inv(model[:3, :3]).T)  # normal matrix
     world3 = world[:, :3]
 
     # pad faces to a chunk multiple with degenerate (index 0) tris

@@ -20,13 +20,15 @@ RENAULT_OBJ = os.path.join(REFERENCE_ASSETS, "Renault12TL", "Renault12TL.obj")
 
 
 def load_texture(path: str):
-    """Decode an image file to (H, W, 3) float32 in [0, 1]; None on failure.
+    """Decode an image file to (H, W, 3) float32 in [0, 1]; None when the
+    file cannot be decoded. Raises ImportError when Pillow is missing.
     (The reference decodes with ImageSharp, `Core/Texture.fs:30-44`; the
     vertical flip it does at load happens at *sample* time here, see
     `materials.texture.sample_atlas`.)"""
-    try:
-        from PIL import Image
+    from mafrixraytracing_tpu.film.image import pil_image
 
+    Image = pil_image()
+    try:
         im = Image.open(path).convert("RGB")
         return np.asarray(im, np.float32) / 255.0
     except Exception:
@@ -152,52 +154,11 @@ def mesh_scene(
     albedo=(0.7, 0.5, 0.4),
     light_radiance=(12.0, 12.0, 12.0),
 ) -> S.SceneSpec:
-    """Generic hero shot for a mesh: auto-framed camera, ground plane, and an
-    overhead area light (the capability demonstrated by the reference's
-    `DrawWithTexture`/spot sample, re-lit for path tracing)."""
-    model = load_obj(obj_path)
-    mesh = model.mesh()
+    """Generic hero shot for a mesh (`scene.builtin.hero_shot`)."""
+    from mafrixraytracing_tpu.scene.builtin import hero_shot
 
-    v = mesh.vertices
-    lo, hi = v.min(axis=0), v.max(axis=0)
-    center = (lo + hi) / 2.0
-    size = float(np.max(hi - lo))
-
-    cam_pos = center + np.array([0.0, 0.35 * size, 1.8 * size], np.float32)
-    cam_dir = center - cam_pos
-    ground_y = float(lo[1]) - 0.02 * size
-    g = 3.0 * size
-    ground = S.make_rect_mesh(
-        (center[0] - g, ground_y, center[2] + g),
-        (center[0] + g, ground_y, center[2] + g),
-        (center[0] + g, ground_y, center[2] - g),
-        (center[0] - g, ground_y, center[2] - g),
-    )
-    ls = 0.8 * size
-    lh = float(hi[1]) + 1.5 * size
-    light = S.make_rect_mesh(
-        (center[0] - ls, lh, center[2] - ls),
-        (center[0] + ls, lh, center[2] - ls),
-        (center[0] + ls, lh, center[2] + ls),
-        (center[0] - ls, lh, center[2] + ls),
-    )
-
-    return S.SceneSpec(
-        camera=S.CameraSpec(
-            position=tuple(cam_pos),
-            direction=tuple(cam_dir),
-            fov=45.0,
-            aspect=width / height,
-            fov_convention="standard",
-        ),
-        materials=[
-            S.MaterialSpec(type="lambert", albedo=albedo),
-            S.MaterialSpec(type="lambert", albedo=(0.8, 0.8, 0.8)),
-        ],
-        shapes=[S.ShapeSpec(mesh, 0), S.ShapeSpec(ground, 1)],
-        area_lights=[S.AreaLightSpec(light, radiance=light_radiance, visible=False)],
-        film=S.FilmSpec(width=width, height=height),
-    )
+    return hero_shot(load_obj(obj_path).mesh(), width, height, albedo,
+                     light_radiance)
 
 
 def spot_scene(width: int = 512, height: int = 512) -> S.SceneSpec:

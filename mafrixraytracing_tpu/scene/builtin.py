@@ -163,3 +163,93 @@ def sphere_triad(width: int = 200, height: int = 100) -> S.SceneSpec:
         ],
         film=S.FilmSpec(width=width, height=height),
     )
+
+
+def hero_shot(mesh: S.Mesh, width: int = 512, height: int = 512,
+              albedo=(0.7, 0.5, 0.4),
+              light_radiance=(12.0, 12.0, 12.0)) -> S.SceneSpec:
+    """Generic hero shot for a mesh: auto-framed camera, ground plane, and an
+    overhead area light (the capability demonstrated by the reference's
+    `DrawWithTexture`/spot sample, re-lit for path tracing)."""
+    v = mesh.vertices
+    lo, hi = v.min(axis=0), v.max(axis=0)
+    center = (lo + hi) / 2.0
+    size = float(np.max(hi - lo))
+
+    cam_pos = center + np.array([0.0, 0.35 * size, 1.8 * size], np.float32)
+    cam_dir = center - cam_pos
+    ground_y = float(lo[1]) - 0.02 * size
+    g = 3.0 * size
+    ground = S.make_rect_mesh(
+        (center[0] - g, ground_y, center[2] + g),
+        (center[0] + g, ground_y, center[2] + g),
+        (center[0] + g, ground_y, center[2] - g),
+        (center[0] - g, ground_y, center[2] - g),
+    )
+    ls = 0.8 * size
+    lh = float(hi[1]) + 1.5 * size
+    light = S.make_rect_mesh(
+        (center[0] - ls, lh, center[2] - ls),
+        (center[0] + ls, lh, center[2] - ls),
+        (center[0] + ls, lh, center[2] + ls),
+        (center[0] - ls, lh, center[2] + ls),
+    )
+
+    return S.SceneSpec(
+        camera=S.CameraSpec(
+            position=tuple(cam_pos),
+            direction=tuple(cam_dir),
+            fov=45.0,
+            aspect=width / height,
+            fov_convention="standard",
+        ),
+        materials=[
+            S.MaterialSpec(type="lambert", albedo=albedo),
+            S.MaterialSpec(type="lambert", albedo=(0.8, 0.8, 0.8)),
+        ],
+        shapes=[S.ShapeSpec(mesh, 0), S.ShapeSpec(ground, 1)],
+        area_lights=[S.AreaLightSpec(light, radiance=light_radiance,
+                                     visible=False)],
+        film=S.FilmSpec(width=width, height=height),
+    )
+
+
+# Box-field stand-ins for the reference meshes (spot, Renault12TL), which
+# are not shipped with the repository: the same hero shot around a
+# deterministic field of rotated boxes with the same triangle count, so a
+# cluster search sees a realistic number of clusters.
+SPOT_TRIS = 5_856
+RENAULT_TRIS = 36_996
+
+
+def box_field_mesh(n_boxes: int, extent=(1.0, 0.8, 0.6),
+                   seed: int = 0) -> S.Mesh:
+    """`n_boxes` `_box_mesh` boxes (12 triangles each) with random centers
+    in a box of half-size `extent`, random half-sizes and y rotations,
+    merged into one mesh. Deterministic in `seed`."""
+    rng = np.random.default_rng(seed)
+    ext = np.asarray(extent, np.float32)
+    scale = float(np.cbrt(np.prod(2.0 * ext) / n_boxes))
+    verts, faces = [], []
+    for b in range(n_boxes):
+        box = _box_mesh(
+            tuple(rng.uniform(-ext, ext)),
+            tuple(rng.uniform(0.15, 0.45, 3) * scale),
+            rotate_y_deg=float(rng.uniform(0.0, 90.0)),
+        )
+        verts.append(box.vertices)
+        faces.append(box.faces + 8 * b)
+    return S.Mesh(vertices=np.concatenate(verts).astype(np.float32),
+                  faces=np.concatenate(faces).astype(np.int32))
+
+
+def box_field(n_tris: int = SPOT_TRIS, width: int = 512, height: int = 512,
+              seed: int = 0) -> S.SceneSpec:
+    """Hero shot of a box field with `n_tris` triangles (a multiple of 12):
+    `box_field(SPOT_TRIS)` stands in for spot (488 boxes, a cow-sized
+    volume) and `box_field(RENAULT_TRIS)` for Renault12TL (3,083 boxes, a
+    car-shaped volume)."""
+    assert n_tris % 12 == 0, n_tris
+    extent = (2.0, 0.65, 0.85) if n_tris > SPOT_TRIS else (1.0, 0.8, 0.6)
+    return hero_shot(box_field_mesh(n_tris // 12, extent, seed), width,
+                     height)

@@ -1,6 +1,6 @@
 """Scene compiler: `SceneSpec` -> `ScenePytree` flat SoA device arrays.
 
-This is the TPU-native replacement for the reference's object-graph scene
+This is the array replacement for the reference's object-graph scene
 build (`Scene/Scene.fs:291-313`: BVH over `IHitable[]` + `MaterialManager`
 singleton + one `INewLight`). Everything becomes padded, statically-shaped
 f32/i32 arrays so the whole scene is a single jit-traceable pytree:
@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from mafrixraytracing_tpu.core import struct
 from jax import Array
 
 from mafrixraytracing_tpu.scene import spec as S
@@ -102,21 +102,20 @@ class ScenePytree(struct.PyTreeNode):
                             # clusters, tested densely; -1 padded
     # static: True when any material references an atlas page. Lets the hot
     # path skip the per-bounce texture gather entirely for untextured
-    # scenes (a (B,)-indexed gather costs ~3 ms at B=512k).
+    # scenes.
     has_textures: bool = struct.field(pytree_node=False, default=False)
     # static material/shape capability flags: the hot shader and the
     # intersectors statically skip whole branches the scene cannot need
     # (e.g. the spot bench is lambert-only with zero spheres — the metal
-    # fuzz sampling, dielectric Fresnel, AND the (B, Sp) sphere tests —
-    # whose (B, 8) temps lane-pad 8 -> 128 — are all dead weight there).
+    # fuzz sampling, dielectric Fresnel, AND the (B, Sp) sphere tests are
+    # all dead weight there).
     has_glossy: bool = struct.field(pytree_node=False, default=False)
     has_metal: bool = struct.field(pytree_node=False, default=True)
     has_dielectric: bool = struct.field(pytree_node=False, default=True)
     num_live_spheres: int = struct.field(pytree_node=False, default=0)
     # static: number of live mega triangles. The dense prepass computes
     # (B, n) planes; slicing to the real count instead of MAX_MEGA=32 cuts
-    # its lane-padded traffic (32 -> 128 lanes regardless, but fewer rows
-    # of work and temps when n is small).
+    # its work and temps when n is small.
     num_mega: int = struct.field(pytree_node=False, default=0)
 
     @property

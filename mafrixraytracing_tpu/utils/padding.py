@@ -2,8 +2,8 @@
 
 XLA traces and compiles once per shape; scenes therefore pad their primitive
 arrays up to coarse buckets so loading a slightly different mesh does not
-recompile the renderer, and so array extents line up with the TPU's
-(8, 128) f32 tiling.
+recompile the renderer, and triangle counts stay whole 128-triangle
+clusters.
 """
 from __future__ import annotations
 

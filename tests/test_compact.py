@@ -47,11 +47,17 @@ def _down_rays(n):
 
 def test_buckets_static_schedule():
     cfg = PathTracerConfig(max_depth=4, compact=(1.0, 0.5, 0.5, 0.25))
+    from mafrixraytracing_tpu.ops.intersect_pallas import BLOCK
+
+    def up(n):
+        return -(-n // BLOCK) * BLOCK
+
     assert compact_buckets(cfg, 1 << 19) == [524288, 262144, 262144, 131072]
-    # small batches round without the 1024 alignment
-    assert compact_buckets(cfg, 200) == [200, 100, 100, 50]
-    # rounded up to 1024, non-increasing
-    assert compact_buckets(cfg, 3000) == [3000, 2048, 2048, 1024]
+    # batches below one intersector block round without the alignment
+    assert BLOCK > 4 and compact_buckets(cfg, 4) == [4, 2, 2, 1]
+    # rounded up to the intersector block, non-increasing
+    assert compact_buckets(cfg, 3000) == [3000, up(1500), up(1500), up(750)]
+    assert compact_buckets(cfg, 3000)[1] % BLOCK == 0
 
 
 def test_compaction_bit_exact_when_no_kills():

@@ -230,3 +230,24 @@ def test_nee_visible_light_oblique():
     mis_both = np.mean([run(True, True, 1 << 13, s + 16) for s in range(4)])
     np.testing.assert_allclose(nee_only, bsdf_only, rtol=0.04)
     np.testing.assert_allclose(mis_both, bsdf_only, rtol=0.04)
+
+
+def test_nee_light_row_fetch_equals_gathers():
+    """The NEE light fetch (one row of `packed_light_table`) equals the
+    per-field gathers of the light table, bit for bit — no matrix product
+    sits in the fetch to round light geometry or radiance."""
+    from mafrixraytracing_tpu.lights.lights import packed_light_table
+
+    cs = compile_scene(cornell_box())
+    s = cs.scene
+    s = s.replace(light_radiance=s.light_radiance * 1.2345678)
+    L = s.light_v0.shape[0]
+    li = jnp.asarray(np.random.default_rng(0).integers(0, L, 257), jnp.int32)
+    row = np.asarray(packed_light_table(s)[li])
+    for lo, field in ((0, s.light_v0), (3, s.light_e1), (6, s.light_e2),
+                      (9, s.light_normal), (12, s.light_radiance)):
+        np.testing.assert_array_equal(row[:, lo:lo + 3],
+                                      np.asarray(field)[np.asarray(li)])
+    flags = (np.asarray(s.light_two_sided, np.float32)
+             + 2.0 * np.asarray(s.light_mask, np.float32))
+    np.testing.assert_array_equal(row[:, 15], flags[np.asarray(li)])

@@ -136,3 +136,27 @@ def test_vertex_gradients_flow_through_hit():
     # moves the whole plane toward the origin: dt/dz = -1 on row 0 only
     np.testing.assert_allclose(float(g[0, 2]), -1.0, atol=1e-4)
     assert float(jnp.sum(jnp.abs(g[1:]))) < 1e-4
+
+
+def test_fetch_cols_gradient_matches_plain_gather():
+    """`fetch_cols` (one row gather, 36 column views) differentiates like
+    the plain per-column gather `table[idx, k]`, including repeated
+    indices whose cotangents must add up."""
+    table = jax.random.normal(jax.random.key(0), (40, isect.PACKED_COLS))
+    idx = jnp.asarray(np.random.default_rng(1).integers(0, 40, 300),
+                      jnp.int32)
+    w = jax.random.normal(jax.random.key(2), (isect.PACKED_COLS, 300))
+
+    def via_fetch(t):
+        cols = isect.fetch_cols(t, idx)
+        return sum(jnp.sum(jnp.sin(c) * w[k]) for k, c in enumerate(cols))
+
+    def via_gather(t):
+        return sum(jnp.sum(jnp.sin(t[idx, k]) * w[k])
+                   for k in range(isect.PACKED_COLS))
+
+    np.testing.assert_allclose(float(via_fetch(table)),
+                               float(via_gather(table)), rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(jax.grad(via_fetch)(table)),
+                               np.asarray(jax.grad(via_gather)(table)),
+                               rtol=1e-5, atol=1e-6)

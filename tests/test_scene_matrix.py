@@ -1,7 +1,7 @@
 """BASELINE config-matrix smoke renders: Cube (real MTL texture) and
 Renault12TL (37k faces) must render with their real materials through the
 full pipeline (BASELINE.md forward-correctness rows; reduced resolution —
-the full-res configs run on TPU via BENCH_SCENE=cube|renault)."""
+the full-res configs run on the GPU via BENCH_SCENE=cube|renault)."""
 import os
 
 import jax

@@ -78,7 +78,7 @@ def test_multihost_launch_single_process():
 
 def test_overlap_microbatched_train_step():
     """`overlap_microbatches=M` (per-microbatch gradient pmean, unrolled so
-    XLA can overlap the ICI all-reduce with the next microbatch's backward
+    XLA can overlap the all-reduce with the next microbatch's backward
     — round-4 VERDICT weak #4) must produce finite, sane training steps on
     the 8-device mesh, with the M sub-sample sets partitioning the sample
     budget (no RNG reuse: the two estimators agree within MC noise)."""
